@@ -11,8 +11,13 @@ Phases, one line each (any failure exits non-zero):
   2. build: compile the kernel library with nvcc and time it;
   3. kernels: each CUDA kernel against its plain PyTorch twin on the
      card, at the main path's shapes, on seeded synthetic data and on a
-     real office_loop frame against its 131072-point target; times
-     from CUDA events (median of 20);
+     real office_loop frame against its 131072-point target, the two
+     window kernels also on a table that overflowed its capacity, and
+     the point features they compute bit for bit against the twin's;
+     wrapper times from CUDA events (median of 20), the kernels' own
+     device time and the device operations of one wrapper call from
+     torch.profiler, each kernel's bound from this run's inputs, the
+     time of an empty launch, and one library call beside kernel 3;
   4. main path: `run_slam` over all 500 frames of
      tests/data/office_loop.clf with the default SlamConfig on the card;
      ATE against the ground truth, accept rate, launch counts, outputs;
@@ -38,6 +43,10 @@ import numpy as np
 ROOT = os.path.dirname(os.path.abspath(__file__))
 LOG = os.path.join(ROOT, "tests", "data", "office_loop.clf")
 GT = os.path.join(ROOT, "tests", "data", "office_loop.gt")
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
+OWN_KERNELS = ("window_kernel", "window_sum_kernel", "nn_kernel",
+               "empty_kernel")
 ATE_BOUND = 0.3            # suite.json office_default
 ACCEPT_BOUND = 0.95
 REAL_FRAME = 40            # frame whose registration feeds the checks
@@ -75,6 +84,54 @@ def _time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def _profile_calls(fn, calls: int = 10):
+    """(device operations, launches of this repository's kernels, their
+    device microseconds, the same by kernel) of one fn() call, from a
+    torch.profiler trace of `calls` calls: every kernel, copy and memset
+    the card ran counts as one device operation."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _require(dev, "the profiler recorded device events")
+    own = {}
+    for e in dev:
+        for k in OWN_KERNELS:
+            if k in e.name:
+                own.setdefault(k, []).append(e.time_range.elapsed_us())
+    split = {k: round(sum(v) / calls, 2) for k, v in own.items()}
+    return (len(dev) / calls, sum(len(v) for v in own.values()) / calls,
+            sum(sum(v) for v in own.values()) / calls, split)
+
+
+def _empty_launch_us():
+    """(microseconds from just before one launch of an empty kernel to
+    its end, by CUDA events, median of 50; its device time by the
+    profiler)."""
+    import torch
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    dev = torch.device("cuda", 0)
+    _, _, prof_us, _ = _profile_calls(lambda: kernels.empty_launch(dev), 50)
+    return _time_ms(lambda: kernels.empty_launch(dev), reps=50) * 1e3, prof_us
+
+
+def _bound(n_bytes: float, flops: float):
+    """Least time for the work on this card: (ms, what bounds it)."""
+    t_bytes = float(n_bytes) / HBM_BYTES_PER_S
+    t_ops = float(flops) / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
 def _synthetic_scene(rng, n_tgt: int, n_src: int):
     """Seeded walls in a 40 m x 40 m square: target points on random
     segments, a source scan of the same walls seen from a pose offset
@@ -99,12 +156,51 @@ def _synthetic_scene(rng, n_tgt: int, n_src: int):
     return tgt.astype(np.float32), src.astype(np.float32)
 
 
+def _check_window_kernels(name, sc, cg, d1, d2, r, err, min_matched=100):
+    """sgh and score_many against their twins on one scene and table;
+    returns the matched count and E."""
+    import torch
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.ndt.compact import (
+        ndt_negative_score_compact, ndt_score_grad_hess_compact,
+    )
+
+    pose, src, cand = sc["pose_rad"], sc["src"], sc["cand"]
+    E1, g1, H1, m1 = kernels.ndt_score_grad_hess(
+        pose, src.xy, src.mask, cg, d1, d2, r)
+    E0, g0, H0, m0 = ndt_score_grad_hess_compact(
+        pose, src.xy, src.mask, cg, d1, d2, r)
+    torch.cuda.synchronize()
+    _require(float(m1) == float(m0),
+             f"{name}: matched {float(m1)} != twin {float(m0)}")
+    _require(float(m0) > min_matched,
+             f"{name}: only {float(m0)} matched pairs")
+    np.testing.assert_allclose(E1.item(), E0.item(), rtol=1e-5)
+    np.testing.assert_allclose(g1.cpu().numpy(), g0.cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(H1.cpu().numpy(), H0.cpu().numpy(),
+                               rtol=1e-3, atol=0.05)
+    err["sgh"] = max(err["sgh"], max(
+        abs(E1.item() - E0.item()), abs(m1.item() - m0.item()),
+        (g1 - g0).abs().max().item(), (H1 - H0).abs().max().item()))
+
+    s1 = kernels.ndt_scores(cand, src.xy, src.mask, cg, d1, d2, r)
+    s0 = torch.stack([ndt_negative_score_compact(
+        p, src.xy, src.mask, cg, d1, d2, r) for p in cand])
+    np.testing.assert_allclose(s1.cpu().numpy(), s0.cpu().numpy(),
+                               rtol=1e-5)
+    err["score_many"] = max(err["score_many"],
+                            (s1 - s0).abs().max().item())
+    return int(m0.item()), E0.item()
+
+
 def _check_kernels(cfg, scenes):
     """Each kernel vs its twin on every scene; returns the JSON rows."""
     import torch
     from ndt_slam_tpu_torch.ndt import kernels
     from ndt_slam_tpu_torch.ndt.compact import (
-        ndt_negative_score_compact, ndt_score_grad_hess_compact,
+        compact_grid, ndt_negative_score_compact,
+        ndt_score_grad_hess_compact, point_features,
     )
     from ndt_slam_tpu_torch.ndt.fitness import nn_sq_dists as nn_plain
     from ndt_slam_tpu_torch.ndt.score import gauss_constants
@@ -113,32 +209,27 @@ def _check_kernels(cfg, scenes):
     r = cfg.ndt_neighborhood
     err = {"sgh": 0.0, "score_many": 0.0, "nn": 0.0}
     for name, sc in scenes.items():
-        pose, src, cg = sc["pose_rad"], sc["src"], sc["cg"]
-        E1, g1, H1, m1 = kernels.ndt_score_grad_hess(
-            pose, src.xy, src.mask, cg, d1, d2, r)
-        E0, g0, H0, m0 = ndt_score_grad_hess_compact(
-            pose, src.xy, src.mask, cg, d1, d2, r)
-        torch.cuda.synchronize()
-        _require(float(m1) == float(m0),
-                 f"{name}: matched {float(m1)} != twin {float(m0)}")
-        _require(float(m0) > 100, f"{name}: only {float(m0)} matched pairs")
-        np.testing.assert_allclose(E1.item(), E0.item(), rtol=1e-5)
-        np.testing.assert_allclose(g1.cpu().numpy(), g0.cpu().numpy(),
-                                   rtol=1e-4, atol=1e-3)
-        np.testing.assert_allclose(H1.cpu().numpy(), H0.cpu().numpy(),
-                                   rtol=1e-3, atol=0.05)
-        err["sgh"] = max(err["sgh"], max(
-            abs(E1.item() - E0.item()), abs(m1.item() - m0.item()),
-            (g1 - g0).abs().max().item(), (H1 - H0).abs().max().item()))
+        src, cg = sc["src"], sc["cg"]
+        matched, E0 = _check_window_kernels(name, sc, cg, d1, d2, r, err)
 
-        cand = sc["cand"]
-        s1 = kernels.ndt_scores(cand, src.xy, src.mask, cg, d1, d2, r)
-        s0 = torch.stack([ndt_negative_score_compact(
-            p, src.xy, src.mask, cg, d1, d2, r) for p in cand])
-        np.testing.assert_allclose(s1.cpu().numpy(), s0.cpu().numpy(),
-                                   rtol=1e-5)
-        err["score_many"] = max(err["score_many"],
-                                (s1 - s0).abs().max().item())
+        # a table that overflowed: half the valid cells are dropped
+        n_valid = int(cg.valid.sum())
+        small = compact_grid(sc["grid"], n_valid // 2)
+        m_small, _ = _check_window_kernels(f"{name} (overflowed table)", sc,
+                                           small, d1, d2, r, err,
+                                           min_matched=0)
+        _require(m_small < matched, f"{name}: the overflowed table matched "
+                                    f"{m_small} of {matched} pairs")
+
+        # the features the window kernels compute, bit for bit
+        poses = torch.cat([sc["pose_rad"][None, :], sc["cand"]])
+        got = kernels.kernel_point_features(poses, src.xy, cg)
+        px, py, fx, fy, _, _ = point_features(poses, src.xy, cg)
+        want = torch.stack((px, py, fx, fy), dim=-1)
+        differ = int((got.view(torch.int32) != want.view(torch.int32))
+                     .any(dim=-1).sum())
+        _require(differ == 0, f"{name}: {differ} of {want[..., 0].numel()} "
+                              f"(pose, point) features differ from the twin")
 
         smap, tgt = sc["src_map"], sc["tgt"]
         n1 = kernels.nn_sq_dists(smap, src.mask, tgt.xy, tgt.mask)
@@ -147,8 +238,11 @@ def _check_kernels(cfg, scenes):
                                    rtol=0, atol=1e-6)
         err["nn"] = max(err["nn"], (n1 - n0).abs().max().item())
         print(f"[kernels] {name}: N={src.capacity} K={cg.capacity} "
-              f"M={tgt.capacity} matched={int(m0.item())} "
-              f"E={E0.item():.6g} sgh/score_many/nn agree with the twins")
+              f"M={tgt.capacity} matched={matched} (overflowed table "
+              f"K={small.capacity}: {m_small}) E={E0:.6g} "
+              f"sgh/score_many/nn agree with the twins; px, py, fx, fy of "
+              f"{want[..., 0].numel()} (pose, point) pairs equal the twin's "
+              f"bit for bit")
 
     sc = scenes["office_loop"]
     pose, src, cg, cand = sc["pose_rad"], sc["src"], sc["cg"], sc["cand"]
@@ -172,6 +266,53 @@ def _check_kernels(cfg, scenes):
         "score_many": "ndt_slam_tpu/ndt/pallas_kernels.py:213",
         "nn": "ndt_slam_tpu/ndt/pallas_kernels.py:303",
     }
+
+    # Bounds from this run's inputs: each input read once, each output
+    # written once, and only the work the data needs: the window cells a
+    # live point looks up, the table cells that matched, the valid
+    # (source, target) pairs.
+    n, m = src.capacity, tgt.capacity
+    n_live, m_live = int(src.mask.sum()), int(tgt.mask.sum())
+    win = (2 * r + 1) ** 2
+    cells, k_valid = cg.nx * cg.ny, int(cg.valid.sum())
+    all_poses = torch.cat([pose[None, :], cand])
+    pairs = kernels.ndt_score_grad_hess(all_poses, src.xy, src.mask, cg,
+                                        d1, d2, r)[3].cpu().numpy()
+    nc = cand.shape[0]
+
+    def window_bytes(poses, matched_pairs, out_floats):
+        return (n * 9 + poses * 12 + 8 + min(poses * n_live * win, cells) * 4
+                + min(matched_pairs, k_valid) * 32 + out_floats * 4)
+
+    bounds = {
+        # ~20 flop of features a point, ~45 (sgh) / ~25 (score) a pair
+        "sgh": _bound(window_bytes(1, pairs[0], 16),
+                      n_live * 20 + pairs[0] * 45),
+        "score_many": _bound(window_bytes(nc, pairs[1:].sum(), nc),
+                             nc * n_live * 20 + pairs[1:].sum() * 25),
+        # 2 sub, 2 mul, add, min a valid pair
+        "nn": _bound(n * 9 + m * 9 + n * 4, n_live * m_live * 6),
+    }
+
+    print(f"[kernels] bounds from {n_live} live of {n} source slots, "
+          f"{m_live} live of {m} target slots, {int(pairs[0])} matched "
+          f"pairs at the pose and {int(pairs[1:].sum())} over the {nc} "
+          f"candidates, {k_valid} valid cells")
+
+    def cdist_min():
+        d = torch.cdist(smap, tgt.xy,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        return torch.where(tgt.mask[None, :], d, 1.0e6).amin(dim=1) ** 2
+
+    lib = cdist_min()
+    np.testing.assert_allclose(
+        lib[src.mask].cpu().numpy(),
+        nn_plain(smap, src.mask, tgt.xy, tgt.mask)[src.mask].cpu().numpy(),
+        rtol=1e-3, atol=1e-4)
+    del lib
+    library_ms = {"sgh": None, "score_many": None,
+                  "nn": _time_ms(cdist_min, reps=5)}
+
     rows = []
     for name, (kern, plain) in calls.items():
         # plain, kernel, kernel, plain: the median of each pair
@@ -180,13 +321,27 @@ def _check_kernels(cfg, scenes):
         k1 = _time_ms(kern)
         p1 = _time_ms(plain)
         ms, plain_ms = (k0 + k1) / 2, (p0 + p1) / 2
-        print(f"[kernels] {name}: kernel {ms:.4f} ms, twin {plain_ms:.4f} ms "
-              f"(max abs err {err[name]:.3g})")
+        ops, own, kernel_us, split = _profile_calls(kern)
+        bound_ms, bound_by = bounds[name]
+        lib_txt = ("none" if library_ms[name] is None
+                   else f"{library_ms[name]:.4f} ms")
+        print(f"[kernels] {name}: wrapper {ms:.4f} ms, its kernels alone "
+              f"{kernel_us:.2f} us in {own:g} launches {split}, {ops:g} device "
+              f"operations a call; bound {bound_ms * 1e3:.4f} us "
+              f"({bound_by}); twin {plain_ms:.4f} ms; library call "
+              f"{lib_txt} (max abs err {err[name]:.3g})")
+        if name != "nn":
+            _require(ops <= 8 and own <= 2,
+                     f"{name}: {ops:g} device operations a call, {own:g} of "
+                     f"them this repository's kernels (at most 8 and 2)")
         rows.append({
             "name": name, "route": "cuda",
             "source": "ndt_slam_tpu_torch/csrc/ndt_kernels.cu",
             "replaces": replaces[name], "launches": 0,
             "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms[name], "kernel_us": kernel_us,
+            "bound_us": bound_ms * 1e3, "device_ops_per_call": ops,
         })
     return rows
 
@@ -215,7 +370,7 @@ def _scenes(device, cfg, frames):
             [1.0, -0.5, 0.3], device=device)
         src_map = pose2.global_points(pred_deg, src.xy)
         src_map = torch.where(src.mask[:, None], src_map, PAD_COORD)
-        return dict(pose_rad=pose_rad, src=src, cg=cg, cand=cand,
+        return dict(pose_rad=pose_rad, src=src, grid=grid, cg=cg, cand=cand,
                     src_map=src_map, tgt=tgt)
 
     rng = np.random.default_rng(0)
@@ -278,6 +433,10 @@ def main() -> int:
     frames = read_carmen_log(LOG)
     gt = read_carmen_gt(GT)
     rows = _check_kernels(cfg, _scenes(device, cfg, frames))
+    event_us, device_us = _empty_launch_us()
+    print(f"[launch] an empty kernel: {event_us:.2f} us from before its "
+          f"launch to its end (CUDA events, median of 50), {device_us:.2f} "
+          f"us of device time (profiler)", flush=True)
 
     # 4. the main path: 500 frames of office_loop, default config
     kernels.reset_launch_counts()

@@ -21,7 +21,9 @@ import torch
 from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core.points import PointBuffer
 from ndt_slam_tpu_torch.mapping.pointcloud_map import Submap
-from ndt_slam_tpu_torch.ndt.compact import CompactGrid
+from ndt_slam_tpu_torch.ndt.compact import (
+    CompactGrid, cell_slot_of_table, table_rows,
+)
 from ndt_slam_tpu_torch.ndt.grid import NDTGrid
 from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
 
@@ -56,11 +58,14 @@ def ndt_grid(g, device) -> NDTGrid:
 
 
 def compact_grid(cg, device) -> CompactGrid:
-    """From an `ndt_slam_tpu.ndt.compact.CompactGrid`."""
+    """From an `ndt_slam_tpu.ndt.compact.CompactGrid`; the window index
+    (`table`, `cell_slot`) is rebuilt from the table."""
     f32 = {k: _t(getattr(cg, k), device, np.float32)
            for k in ("kx", "ky", "mx", "my", "b00", "b01", "b11", "origin")}
-    return CompactGrid(valid=_t(cg.valid, device, bool), nx=int(cg.nx),
-                       ny=int(cg.ny), resolution=float(cg.resolution), **f32)
+    out = CompactGrid(valid=_t(cg.valid, device, bool), nx=int(cg.nx),
+                      ny=int(cg.ny), resolution=float(cg.resolution), **f32)
+    return out._replace(table=table_rows(out),
+                        cell_slot=cell_slot_of_table(out))
 
 
 def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,

@@ -9,13 +9,16 @@ weighted by the (2r+1)^2 cell-index window test.
 
 This module is the plain PyTorch twin of the first two CUDA kernels
 (ndt/kernels.py): it runs for CPU tensors and is the oracle the kernels
-are held against on the card. `point_features` is shared with the
-kernel wrappers, so the window test sees identical inputs on both sides.
+are held against on the card. The kernels do not scan the table: they
+look the (2r+1)^2 window cells up through `CompactGrid.cell_slot` and
+read them from `CompactGrid.table`, both built here once per frame, and
+compute the point features themselves in `point_features`' operation
+order, so the window test passes the same pairs on both sides.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -29,6 +32,12 @@ class CompactGrid(NamedTuple):
     cell means (map frame); b00, b01, b11: [K] inverse covariance
     entries; valid: [K] bool; origin [2], resolution, nx, ny as in
     NDTGrid.
+
+    The window index, read by the CUDA kernels only: `table` is the
+    same table cell-major, float32 [K, 8] = (kx, ky, mx, my, b00, b01,
+    b11, valid), one cell in two aligned 16-byte loads; `cell_slot` is
+    int32 [nx*ny], the table slot of cell id kx*ny + ky, -1 for a cell
+    that is empty or was dropped at capacity.
     """
     kx: torch.Tensor
     ky: torch.Tensor
@@ -42,6 +51,8 @@ class CompactGrid(NamedTuple):
     nx: int
     ny: int
     resolution: float
+    table: Optional[torch.Tensor] = None
+    cell_slot: Optional[torch.Tensor] = None
 
     @property
     def capacity(self) -> int:
@@ -70,7 +81,7 @@ def compact_grid(grid: NDTGrid, capacity: int) -> CompactGrid:
     ky = (safe % grid.ny).to(torch.float32)
     mean = grid.mean.index_select(0, safe)
     icov = grid.inv_cov.index_select(0, safe)
-    return CompactGrid(
+    cg = CompactGrid(
         kx=torch.where(ok, kx, -1e9),
         ky=torch.where(ok, ky, -1e9),
         mx=torch.where(ok, mean[:, 0], 0.0),
@@ -84,6 +95,31 @@ def compact_grid(grid: NDTGrid, capacity: int) -> CompactGrid:
         ny=grid.ny,
         resolution=grid.resolution,
     )
+    cell_slot = torch.where(slot < capacity, rank, -1).to(torch.int32)
+    return cg._replace(table=table_rows(cg), cell_slot=cell_slot)
+
+
+def table_rows(cg: CompactGrid) -> torch.Tensor:
+    """`cg`'s table cell-major, [K, 8] (the `CompactGrid.table` field)."""
+    return torch.stack([
+        cg.kx, cg.ky, cg.mx, cg.my, cg.b00, cg.b01, cg.b11,
+        cg.valid.to(torch.float32),
+    ], dim=1)
+
+
+def cell_slot_of_table(cg: CompactGrid) -> torch.Tensor:
+    """The `CompactGrid.cell_slot` map of a table that came without one:
+    slot k is scattered to its cell id kx*ny + ky, the invalid slots to
+    a dump entry that is sliced off (no nonzero, no host sync)."""
+    num_cells = cg.nx * cg.ny
+    dev = cg.kx.device
+    cell = torch.where(
+        cg.valid, cg.kx.to(torch.int64) * cg.ny + cg.ky.to(torch.int64),
+        num_cells)
+    out = torch.full((num_cells + 1,), -1, dtype=torch.int32, device=dev)
+    out.scatter_(0, cell, torch.arange(cg.capacity, dtype=torch.int32,
+                                       device=dev))
+    return out[:num_cells]
 
 
 def point_features(pose_rad, xy, cg: CompactGrid):
@@ -150,8 +186,8 @@ def ndt_score_grad_hess_compact(pose_rad, xy, mask, cg: CompactGrid,
 
 def pose_terms(pose_rad, xy, px, py, c, s, gqx, gqy, hq00, hq01, hq11):
     """O(N) epilogue: per-point partial sums over cells -> grad[3] and
-    the symmetric Hessian [3,3] of E. Shared by the plain engine and
-    the kernel wrapper."""
+    the symmetric Hessian [3,3] of E. The CUDA kernel applies the same
+    terms per point before it sums over points."""
     a = -s * xy[:, 0] - c * xy[:, 1]
     b = c * xy[:, 0] - s * xy[:, 1]
     g0 = torch.sum(gqx)

@@ -12,7 +12,19 @@ Each wrapper below replaces one Pallas TPU kernel of
 
 The device of the input tensors picks the route: a CPU tensor runs the
 twin; a CUDA tensor launches the kernel or raises. There is no
-fallback. Each wrapper counts its kernel launches in `.launches`.
+fallback. Each wrapper counts its calls that launched in `.launches`.
+
+The first two kernels are bound on the card by latency, not by bytes or
+operations: a call touches ~0.3 MB and ~9 table cells a point. The TPU
+kernels scan the whole table as a dense [TILE, K] mask (a TPU has no
+gather); here one thread per (pose, point) looks its (2r+1)^2 window
+cells up through `CompactGrid.cell_slot`, computes the point features
+itself in the twin's operation order, and the sums over points are
+reduced on the card in a fixed order. A wrapper call is two launches
+(the gather, then the sum of the per-block partials) and no tensor
+operation: nothing of size N is computed, stacked or copied in torch,
+every scalar goes by value and every tensor by pointer, and nothing
+waits for the host.
 
 The library is built at first use by nvcc (sm_90a, no fast math, no
 FMA contraction) into `build/kernels/` at the repository root, keyed by
@@ -32,14 +44,13 @@ import subprocess
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ndt_slam_tpu_torch.ndt.compact import (
     CompactGrid,
     ndt_negative_score_compact,
     ndt_score_grad_hess_compact,
-    point_features,
-    pose_terms,
 )
 from ndt_slam_tpu_torch.ndt.fitness import BIG, nn_sq_dists as _nn_plain
 
@@ -49,7 +60,10 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-MAX_CANDIDATES = 16  # kMaxCand in the source
+MAX_POSES = 128      # kMaxPoses in the source
+WINDOW_THREADS = 128  # kWinThreads in the source
+SGH_VALUES = 12      # kSghValues: sums a block writes for one pose
+SGH_ROW = 16         # kSghRow: E, matched, grad[3], hess[3,3], 2 pad
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -94,17 +108,22 @@ def _load() -> ctypes.CDLL:
         path, _ = build_kernels()
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        lib.ndt_sgh.argtypes = [p, p, p, i, i, f, f, f, f, f, f, p]
-        lib.ndt_sgh.restype = i
-        lib.ndt_score_many.argtypes = [p, p, p, p, i, i, i, f, f, f, f, p]
-        lib.ndt_score_many.restype = i
+        window = [p] * 8 + [i] * 5 + [f] * 4
+        lib.ndt_sgh.argtypes = window + [f, f, p]
+        lib.ndt_score_many.argtypes = window + [p]
+        lib.ndt_features.argtypes = [p, p, p, p, i, i, f, p]
         lib.ndt_nn.argtypes = [p, p, p, i, i, i, p]
-        lib.ndt_nn.restype = i
-        lib.ndt_max_candidates.argtypes = []
-        lib.ndt_max_candidates.restype = i
-        if lib.ndt_max_candidates() != MAX_CANDIDATES:
+        lib.ndt_empty.argtypes = [p]
+        for fn in (lib.ndt_sgh, lib.ndt_score_many, lib.ndt_features,
+                   lib.ndt_nn, lib.ndt_empty, lib.ndt_window_threads,
+                   lib.ndt_max_poses):
+            fn.restype = i
+        lib.ndt_window_threads.argtypes = []
+        lib.ndt_max_poses.argtypes = []
+        if (lib.ndt_window_threads(), lib.ndt_max_poses()) != (
+                WINDOW_THREADS, MAX_POSES):
             raise RuntimeError("kernel library and wrapper disagree on "
-                               "the candidate limit")
+                               "the block size or the pose limit")
         _lib = lib
     return _lib
 
@@ -119,11 +138,13 @@ def _route(t: torch.Tensor) -> bool:
     raise ValueError(f"no NDT kernel route for device {t.device}")
 
 
-def _arg(t: torch.Tensor, shape: tuple) -> int:
+def _arg(t: torch.Tensor, shape: tuple,
+         dtype: torch.dtype = torch.float32) -> int:
     """Checked device pointer of a kernel operand."""
-    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        name = str(dtype).removeprefix("torch.")
         raise ValueError(
-            f"kernel operand must be a contiguous float32 CUDA tensor, got "
+            f"kernel operand must be a contiguous {name} CUDA tensor, got "
             f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
         )
     if tuple(t.shape) != shape:
@@ -140,77 +161,101 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _table_rows(cg: CompactGrid) -> torch.Tensor:
-    """Compact table as an [8, K] row matrix."""
-    return torch.stack([
-        cg.kx, cg.ky, cg.mx, cg.my, cg.b00, cg.b01, cg.b11,
-        cg.valid.to(torch.float32),
-    ]).contiguous()
+def _inv_resolution(cg: CompactGrid) -> float:
+    """The twin divides by the resolution; on the card that is a product
+    with the f32 reciprocal (csrc/ndt_kernels.cu, point_feature)."""
+    return float(np.float32(1.0) / np.float32(cg.resolution))
 
 
-def _mixture_args(d1: float, d2: float) -> tuple:
-    """Scalar constants in the twin's rounding: each is the f64 Python
-    value the twin multiplies by, cast once to f32."""
-    return float(d1), -0.5 * d2, 50.0 / d2
+def _launch_window(name: str, poses, xy, mask, cg: CompactGrid, d1: float,
+                   d2: float, radius: int, values: int, out_shape: tuple,
+                   tail: tuple = ()) -> torch.Tensor:
+    """Check the operands `ndt_sgh` and `ndt_score_many` share, allocate
+    the output and the per-block partial sums, launch; returns the
+    output."""
+    if cg.table is None or cg.cell_slot is None:
+        raise ValueError(
+            "CompactGrid has no window index (table, cell_slot): build it "
+            "with compact.compact_grid or convert.compact_grid")
+    n, nc, k = xy.shape[0], poses.shape[0], cg.capacity
+    if not 1 <= nc <= MAX_POSES:
+        raise ValueError(f"{nc} poses; the kernel takes 1..{MAX_POSES}")
+    blocks = -(-n // WINDOW_THREADS)
+    partials = torch.empty((nc, blocks, values), dtype=torch.float32,
+                           device=xy.device)
+    out = torch.empty(out_shape, dtype=torch.float32, device=xy.device)
+    _check(getattr(_load(), "ndt_" + name)(
+        _arg(xy, (n, 2)), _arg(mask, (n,), torch.bool),
+        _arg(poses, (nc, 3)), _arg(cg.origin, (2,)),
+        _arg(cg.table, (k, 8)),
+        _arg(cg.cell_slot, (cg.nx * cg.ny,), torch.int32),
+        partials.data_ptr(), out.data_ptr(),
+        n, nc, cg.nx, cg.ny, int(radius),
+        _inv_resolution(cg), float(d1), -0.5 * d2, 50.0 / d2,
+        *tail, _stream(xy),
+    ), name)
+    return out
 
 
 def ndt_score_grad_hess(pose_rad, xy, mask, cg: CompactGrid, d1: float,
                         d2: float, radius: int = 1):
-    """(E, grad[3], hess[3,3], matched) of the NDT objective at one pose.
+    """(E, grad[3], hess[3,3], matched) of the NDT objective at one pose
+    [3], or batched over poses [C,3] -> ([C], [C,3], [C,3,3], [C]).
 
-    CUDA: features in torch, the [N,K] pair pass in `sgh_kernel`
-    (per-point partial sums [N,8]), the O(N) epilogue in torch."""
+    CUDA: `window_kernel<true>` and `window_sum_kernel`; the results are
+    views of the kernel's [C,16] output."""
+    batched = pose_rad.dim() == 2
     if not _route(xy):
-        return ndt_score_grad_hess_compact(pose_rad, xy, mask, cg, d1, d2,
-                                           radius)
-    px, py, fx, fy, c, s = point_features(pose_rad, xy, cg)
-    n, k = xy.shape[0], cg.capacity
-    feats = torch.stack((fx, fy, px, py, mask.to(torch.float32)),
-                        dim=1).contiguous()
-    table = _table_rows(cg)
-    out = torch.empty((n, 8), dtype=torch.float32, device=xy.device)
-    d1f, nh, cap = _mixture_args(d1, d2)
-    _check(_load().ndt_sgh(
-        _arg(feats, (n, 5)), _arg(table, (8, k)), _arg(out, (n, 8)), n, k,
-        d1f, nh, cap, -d1 * d2, float(d2), float(radius), _stream(xy),
-    ), "sgh")
+        if not batched:
+            return ndt_score_grad_hess_compact(pose_rad, xy, mask, cg, d1,
+                                               d2, radius)
+        each = [ndt_score_grad_hess_compact(p, xy, mask, cg, d1, d2, radius)
+                for p in pose_rad]
+        return tuple(torch.stack(part) for part in zip(*each))
+    poses = pose_rad.reshape(-1, 3)
+    out = _launch_window("sgh", poses, xy, mask, cg, d1, d2, radius,
+                         SGH_VALUES, (poses.shape[0], SGH_ROW),
+                         tail=(-d1 * d2, float(d2)))
     ndt_score_grad_hess.launches += 1
-    E = out[:, 0].sum()
-    matched = out[:, 1].sum()
-    grad, hess = pose_terms(pose_rad, xy, px, py, c, s, out[:, 2],
-                            out[:, 3], out[:, 4], out[:, 5], out[:, 6])
-    return E, grad, hess, matched
+    if not batched:
+        out = out[0]
+    return (out[..., 0], out[..., 2:5],
+            out[..., 5:14].unflatten(-1, (3, 3)), out[..., 1])
 
 
 def ndt_scores(poses_rad, xy, mask, cg: CompactGrid, d1: float, d2: float,
                radius: int = 1):
     """E(p) for a batch of candidate poses [C,3] -> [C].
 
-    CUDA: one `score_many_kernel` launch for all C candidates; the sum
-    over points of its per-point partial scores [N,C] in torch."""
+    CUDA: `window_kernel<false>` over (point blocks x candidates) and
+    `window_sum_kernel`."""
     if not _route(xy):
         return torch.stack([
             ndt_negative_score_compact(p, xy, mask, cg, d1, d2, radius)
             for p in poses_rad
         ])
-    nc = poses_rad.shape[0]
-    if not 1 <= nc <= MAX_CANDIDATES:
-        raise ValueError(f"{nc} candidates; the kernel takes 1..16")
-    px, py, fx, fy, _, _ = point_features(poses_rad, xy, cg)   # [C,N]
-    n, k = xy.shape[0], cg.capacity
-    feats = torch.stack((fx, fy, px, py), dim=-1)               # [C,N,4]
-    feats = feats.permute(1, 0, 2).reshape(n, 4 * nc).contiguous()
-    m = mask.to(torch.float32).contiguous()
-    table = _table_rows(cg)
-    out = torch.empty((n, nc), dtype=torch.float32, device=xy.device)
-    d1f, nh, cap = _mixture_args(d1, d2)
-    _check(_load().ndt_score_many(
-        _arg(feats, (n, 4 * nc)), _arg(m, (n,)), _arg(table, (8, k)),
-        _arg(out, (n, nc)), n, nc, k, d1f, nh, cap, float(radius),
-        _stream(xy),
-    ), "score_many")
+    out = _launch_window("score_many", poses_rad, xy, mask, cg, d1, d2,
+                         radius, 1, (poses_rad.shape[0],))
     ndt_scores.launches += 1
-    return out.sum(dim=0)
+    return out
+
+
+def kernel_point_features(poses_rad, xy, cg: CompactGrid) -> torch.Tensor:
+    """[C,N,4] = (px, py, fx, fy) as kernels 1 and 2 compute them on the
+    card, for a check against `compact.point_features`."""
+    n, nc = xy.shape[0], poses_rad.shape[0]
+    out = torch.empty((nc, n, 4), dtype=torch.float32, device=xy.device)
+    _check(_load().ndt_features(
+        _arg(xy, (n, 2)), _arg(poses_rad, (nc, 3)), _arg(cg.origin, (2,)),
+        out.data_ptr(), n, nc, _inv_resolution(cg), _stream(xy),
+    ), "features")
+    return out
+
+
+def empty_launch(device: torch.device):
+    """Launch the library's empty kernel on `device`'s current stream."""
+    _check(_load().ndt_empty(torch.cuda.current_stream(device).cuda_stream),
+           "empty")
 
 
 def _nn_splits(device: torch.device, n_blocks: int, m: int) -> int:

@@ -7,7 +7,9 @@ Inputs are seeded numpy data at the main path's production shapes
 (2048 source slots, a 2048-cell table, 131072 targets, 12 candidates);
 tolerances are the ROADMAP parity bar, with matched exact and NN
 distances at atol 1e-6 (kernel and twin take the same f32 operations
-per pair).
+per pair). The two window kernels also run with a 5x5 neighbourhood, an
+overflowed table, a source partly off the grid window, an all-masked
+source, 3 poses at once (sgh) and 40 candidates (score_many).
 """
 
 import numpy as np
@@ -18,6 +20,7 @@ from ndt_slam_tpu_torch.core.points import PAD_COORD, pad_points
 from ndt_slam_tpu_torch.ndt import kernels
 from ndt_slam_tpu_torch.ndt.compact import (
     compact_grid, ndt_negative_score_compact, ndt_score_grad_hess_compact,
+    point_features,
 )
 from ndt_slam_tpu_torch.ndt.fitness import nn_sq_dists
 from ndt_slam_tpu_torch.ndt.grid import build_grid
@@ -50,7 +53,9 @@ def scene(cuda):
     grid = build_grid(tgt.xy, tgt.mask, torch.zeros(2, device=cuda),
                       192, 192, 0.3, min_pts=6)
     d1, d2 = gauss_constants(0.3, 0.55)
+    assert int(grid.valid.sum()) > 600
     return dict(tgt=tgt, src=src, cg=compact_grid(grid, 2048), d1=d1, d2=d2,
+                small_cg=compact_grid(grid, 600),
                 pose=torch.tensor([0.04, -0.02, 0.005], device=cuda))
 
 
@@ -58,27 +63,74 @@ def _np(x):
     return x.detach().cpu().numpy()
 
 
-@pytest.mark.parametrize("kernel", ["sgh", "score_many", "nn"])
-def test_kernel_matches_twin_on_card(scene, kernel):
-    src, cg, d1, d2, pose = (scene[k] for k in ("src", "cg", "d1", "d2",
-                                                 "pose"))
+# case: (table, neighbourhood, pose offset, all source slots masked)
+WINDOW_CASES = {
+    "main_path": ("cg", 1, (0.0, 0.0, 0.0), False),
+    "r2": ("cg", 2, (0.0, 0.0, 0.0), False),
+    "overflowed_table": ("small_cg", 1, (0.0, 0.0, 0.0), False),
+    "partly_outside": ("cg", 1, (9.0, -7.0, 0.3), False),
+    "all_masked": ("cg", 1, (0.0, 0.0, 0.0), True),
+}
+
+
+def _check_sgh(got, want, masked):
+    E, g, H, m = got
+    E0, g0, H0, m0 = want
+    assert float(m) == float(m0)
+    if masked:
+        assert float(m) == 0.0 and float(E) == 0.0
+        assert torch.isfinite(g).all() and torch.isfinite(H).all()
+    else:
+        assert float(m0) > 100
+    np.testing.assert_allclose(float(E), float(E0), rtol=1e-5)
+    np.testing.assert_allclose(_np(g), _np(g0), rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(_np(H), _np(H0), rtol=1e-3, atol=0.05)
+
+
+@pytest.mark.parametrize("kernel,case", [
+    *[(k, c) for k in ("sgh", "score_many") for c in WINDOW_CASES],
+    ("nn", "main_path"),
+])
+def test_kernel_matches_twin_on_card(scene, kernel, case):
+    src, d1, d2 = (scene[k] for k in ("src", "d1", "d2"))
+    table, r, offset, masked = WINDOW_CASES[case]
+    cg = scene[table]
+    pose = scene["pose"] + torch.tensor(offset, device=src.xy.device)
+    mask = torch.zeros_like(src.mask) if masked else src.mask
+    if case == "partly_outside":
+        _, _, fx, fy, _, _ = point_features(pose, src.xy, cg)
+        off = mask & ((fx < 0) | (fx >= cg.nx) | (fy < 0) | (fy >= cg.ny))
+        assert 20 < int(off.sum()) < int(mask.sum()) - 20
     before = kernels.launch_counts()[kernel]
+    calls = 1
     if kernel == "sgh":
-        E, g, H, m = kernels.ndt_score_grad_hess(pose, src.xy, src.mask, cg,
-                                                 d1, d2)
-        E0, g0, H0, m0 = ndt_score_grad_hess_compact(pose, src.xy, src.mask,
-                                                     cg, d1, d2)
-        assert float(m) == float(m0) > 100
-        np.testing.assert_allclose(float(E), float(E0), rtol=1e-5)
-        np.testing.assert_allclose(_np(g), _np(g0), rtol=1e-4, atol=1e-3)
-        np.testing.assert_allclose(_np(H), _np(H0), rtol=1e-3, atol=0.05)
+        # one pose, then three at once: the batch is the single calls
+        one = kernels.ndt_score_grad_hess(pose, src.xy, mask, cg, d1, d2, r)
+        _check_sgh(one, ndt_score_grad_hess_compact(pose, src.xy, mask, cg,
+                                                    d1, d2, r), masked)
+        poses = pose[None, :] + torch.tensor(
+            [[0.0, 0.0, 0.0], [0.03, -0.02, 0.01], [-0.05, 0.04, -0.02]],
+            device=pose.device)
+        many = kernels.ndt_score_grad_hess(poses, src.xy, mask, cg, d1, d2, r)
+        assert many[0].shape == (3,) and many[1].shape == (3, 3) \
+            and many[2].shape == (3, 3, 3) and many[3].shape == (3,)
+        for got, want in zip(many, one):
+            assert torch.equal(got[0], want)
+        for c in range(3):
+            _check_sgh([x[c] for x in many], ndt_score_grad_hess_compact(
+                poses[c], src.xy, mask, cg, d1, d2, r), masked)
+        calls = 2
     elif kernel == "score_many":
+        n_cand = 12 if case == "main_path" else 40
         poses = pose[None, :] + torch.linspace(
-            -0.03, 0.03, 12, device=pose.device)[:, None]
-        got = kernels.ndt_scores(poses, src.xy, src.mask, cg, d1, d2)
+            -0.03, 0.03, n_cand, device=pose.device)[:, None]
+        got = kernels.ndt_scores(poses, src.xy, mask, cg, d1, d2, r)
         want = torch.stack([ndt_negative_score_compact(
-            p, src.xy, src.mask, cg, d1, d2) for p in poses])
+            p, src.xy, mask, cg, d1, d2, r) for p in poses])
+        assert got.shape == (n_cand,)
         np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5)
+        if masked:
+            assert (got == 0).all()
     else:
         t = scene["tgt"]
         smap = torch.where(src.mask[:, None], src.xy, PAD_COORD)
@@ -86,7 +138,20 @@ def test_kernel_matches_twin_on_card(scene, kernel):
         want = nn_sq_dists(smap, src.mask, t.xy, t.mask)
         np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-6)
     torch.cuda.synchronize()
-    assert kernels.launch_counts()[kernel] == before + 1
+    assert kernels.launch_counts()[kernel] == before + calls
+
+
+def test_kernel_features_equal_the_twins_bit_for_bit(scene):
+    """The window kernels compute px, py and the cell indices fx, fy
+    themselves; they must be the twin's to the bit, or a point near a
+    cell border is matched against other cells."""
+    src, cg = scene["src"], scene["cg"]
+    poses = scene["pose"][None, :] + torch.linspace(
+        -3.0, 3.0, 40, device=src.xy.device)[:, None]
+    got = kernels.kernel_point_features(poses, src.xy, cg)
+    px, py, fx, fy, _, _ = point_features(poses, src.xy, cg)
+    want = torch.stack((px, py, fx, fy), dim=-1)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
 
 
 def test_kernel_rejects_a_bad_operand(scene):
@@ -95,3 +160,22 @@ def test_kernel_rejects_a_bad_operand(scene):
     with pytest.raises(ValueError, match="contiguous float32"):
         kernels.nn_sq_dists(src.xy.double(), src.mask, scene["tgt"].xy,
                             scene["tgt"].mask)
+    with pytest.raises(ValueError, match="contiguous bool"):
+        kernels.ndt_scores(scene["pose"][None, :], src.xy,
+                           src.mask.to(torch.float32), scene["cg"],
+                           scene["d1"], scene["d2"])
+    with pytest.raises(ValueError, match="poses"):
+        kernels.ndt_scores(scene["pose"].repeat(129, 1), src.xy, src.mask,
+                           scene["cg"], scene["d1"], scene["d2"])
+
+
+@pytest.mark.parametrize("kernel", ["sgh", "score_many"])
+def test_kernel_rejects_a_table_without_window_index(scene, kernel):
+    """A CompactGrid without table / cell_slot raises on the card."""
+    src = scene["src"]
+    bare = scene["cg"]._replace(cell_slot=None)
+    fn = (kernels.ndt_score_grad_hess if kernel == "sgh"
+          else kernels.ndt_scores)
+    pose = scene["pose"] if kernel == "sgh" else scene["pose"][None, :]
+    with pytest.raises(ValueError, match="no window index"):
+        fn(pose, src.xy, src.mask, bare, scene["d1"], scene["d2"])
