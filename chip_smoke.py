@@ -14,10 +14,14 @@ Phases, one line each (any failure exits non-zero):
      real office_loop frame against its 131072-point target, the two
      window kernels also on a table that overflowed its capacity, and
      the point features they compute bit for bit against the twin's;
-     wrapper times from CUDA events (median of 20), the kernels' own
-     device time and the device operations of one wrapper call from
-     torch.profiler, each kernel's bound from this run's inputs, the
-     time of an empty launch, and one library call beside kernel 3;
+     the nearest-neighbour kernel bit for bit on scattered, empty and
+     sliced masks and on NaN operands, and its fitness mean; wrapper
+     times from CUDA events (median of 20), the kernels' own device time
+     and the device operations of one wrapper call from torch.profiler
+     (two, both this repository's, for every entry point), each kernel's
+     bound from this run's inputs, kernel 3 again at full load with its
+     operations bound, the time of an empty launch, and one library call
+     beside kernel 3;
   4. main path: `run_slam` over all 500 frames of
      tests/data/office_loop.clf with the default SlamConfig on the card;
      ATE against the ground truth, accept rate, launch counts, outputs;
@@ -46,7 +50,7 @@ GT = os.path.join(ROOT, "tests", "data", "office_loop.gt")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 OWN_KERNELS = ("window_kernel", "window_sum_kernel", "nn_kernel",
-               "empty_kernel")
+               "nn_finish_kernel", "empty_kernel")
 ATE_BOUND = 0.3            # suite.json office_default
 ACCEPT_BOUND = 0.95
 REAL_FRAME = 40            # frame whose registration feeds the checks
@@ -58,10 +62,9 @@ def _require(ok, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
-def _nvidia_smi() -> str:
+def _nvidia_smi(query: str = "name,power.limit") -> str:
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
 
@@ -194,6 +197,59 @@ def _check_window_kernels(name, sc, cg, d1, d2, r, err, min_matched=100):
     return int(m0.item()), E0.item()
 
 
+def _check_nn(name, sc, err) -> int:
+    """Kernel 3 on one scene: `nn_sq_dists` equal to the twin bit for
+    bit and `fitness_score` equal to the twin's mean to rtol 1e-6 (the
+    sum runs in another order; the 1e12 cases exactly), on the scene's
+    masks, a scattered target mask, a target view off the 16-byte grid,
+    an all-masked target, an all-masked source, a one-slot empty target
+    and a NaN and an infinite source. Returns the number of cases."""
+    import torch
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.ndt.fitness import (
+        BIG, fitness_score_plain, nn_sq_dists as nn_plain,
+    )
+
+    src, smap, tgt = sc["src"], sc["src_map"], sc["tgt"]
+    gen = torch.Generator(device=smap.device).manual_seed(5)
+    scattered = tgt.mask & (torch.rand(tgt.capacity, generator=gen,
+                                       device=smap.device) < 0.03)
+    bad = smap.clone()
+    live = torch.nonzero(src.mask)[:, 0]
+    bad[live[0], 0] = float("nan")
+    bad[live[-1], 1] = float("inf")
+    none_t, none_s = torch.zeros_like(tgt.mask), torch.zeros_like(src.mask)
+    cases = {
+        "scene": (smap, src.mask, tgt.xy, tgt.mask),
+        "scattered target": (smap, src.mask, tgt.xy, scattered),
+        "target view": (smap, src.mask, tgt.xy[5:-6], scattered[5:-6]),
+        "no target": (smap, src.mask, tgt.xy, none_t),
+        "no source": (smap, none_s, tgt.xy, tgt.mask),
+        "one empty slot": (smap, src.mask, tgt.xy[:1], none_t[:1]),
+        "NaN and inf source": (bad, src.mask, tgt.xy, tgt.mask),
+    }
+    for case, args in cases.items():
+        got, want = kernels.nn_sq_dists(*args), nn_plain(*args)
+        fit, fit0 = kernels.fitness_score(*args), fitness_score_plain(*args)
+        torch.cuda.synchronize()
+        differ = int(((got.view(torch.int32) != want.view(torch.int32))
+                      & ~(torch.isnan(got) & torch.isnan(want))).sum())
+        _require(differ == 0, f"{name}, {case}: nn differs from the twin in "
+                              f"{differ} of {got.numel()} sources")
+        np.testing.assert_allclose(fit.item(), fit0.item(), rtol=1e-6,
+                                   err_msg=f"{name}, {case}: fitness")
+        if case in ("no target", "no source", "one empty slot"):
+            _require(fit.item() == fit0.item() == float(np.float32(BIG)),
+                     f"{name}, {case}: fitness is 1e12")
+        if case.startswith("NaN"):
+            _require(bool(torch.isnan(got[live[0]]))
+                     and bool(torch.isnan(fit)), f"{name}: a NaN source "
+                     f"gives a NaN distance and a NaN fitness")
+        else:
+            err["nn"] = max(err["nn"], (got - want).abs().max().item())
+    return len(cases)
+
+
 def _check_kernels(cfg, scenes):
     """Each kernel vs its twin on every scene; returns the JSON rows."""
     import torch
@@ -202,7 +258,9 @@ def _check_kernels(cfg, scenes):
         compact_grid, ndt_negative_score_compact,
         ndt_score_grad_hess_compact, point_features,
     )
-    from ndt_slam_tpu_torch.ndt.fitness import nn_sq_dists as nn_plain
+    from ndt_slam_tpu_torch.ndt.fitness import (
+        fitness_score_plain, nn_sq_dists as nn_plain,
+    )
     from ndt_slam_tpu_torch.ndt.score import gauss_constants
 
     d1, d2 = gauss_constants(cfg.ndt_resolution, cfg.ndt_outlier_ratio)
@@ -231,18 +289,14 @@ def _check_kernels(cfg, scenes):
         _require(differ == 0, f"{name}: {differ} of {want[..., 0].numel()} "
                               f"(pose, point) features differ from the twin")
 
-        smap, tgt = sc["src_map"], sc["tgt"]
-        n1 = kernels.nn_sq_dists(smap, src.mask, tgt.xy, tgt.mask)
-        n0 = nn_plain(smap, src.mask, tgt.xy, tgt.mask)
-        np.testing.assert_allclose(n1.cpu().numpy(), n0.cpu().numpy(),
-                                   rtol=0, atol=1e-6)
-        err["nn"] = max(err["nn"], (n1 - n0).abs().max().item())
+        n_cases = _check_nn(name, sc, err)
         print(f"[kernels] {name}: N={src.capacity} K={cg.capacity} "
-              f"M={tgt.capacity} matched={matched} (overflowed table "
+              f"M={sc['tgt'].capacity} matched={matched} (overflowed table "
               f"K={small.capacity}: {m_small}) E={E0:.6g} "
-              f"sgh/score_many/nn agree with the twins; px, py, fx, fy of "
-              f"{want[..., 0].numel()} (pose, point) pairs equal the twin's "
-              f"bit for bit")
+              f"sgh/score_many agree with the twins; px, py, fx, fy of "
+              f"{want[..., 0].numel()} (pose, point) pairs and nn on "
+              f"{n_cases} mask and NaN cases equal the twin's bit for bit; "
+              f"the fitness mean agrees to rtol 1e-6")
 
     sc = scenes["office_loop"]
     pose, src, cg, cand = sc["pose_rad"], sc["src"], sc["cg"], sc["cand"]
@@ -261,6 +315,9 @@ def _check_kernels(cfg, scenes):
             lambda: kernels.nn_sq_dists(smap, src.mask, tgt.xy, tgt.mask),
             lambda: nn_plain(smap, src.mask, tgt.xy, tgt.mask)),
     }
+    fitness_calls = (
+        lambda: kernels.fitness_score(smap, src.mask, tgt.xy, tgt.mask),
+        lambda: fitness_score_plain(smap, src.mask, tgt.xy, tgt.mask))
     replaces = {
         "sgh": "ndt_slam_tpu/ndt/pallas_kernels.py:106",
         "score_many": "ndt_slam_tpu/ndt/pallas_kernels.py:213",
@@ -330,10 +387,9 @@ def _check_kernels(cfg, scenes):
               f"operations a call; bound {bound_ms * 1e3:.4f} us "
               f"({bound_by}); twin {plain_ms:.4f} ms; library call "
               f"{lib_txt} (max abs err {err[name]:.3g})")
-        if name != "nn":
-            _require(ops <= 8 and own <= 2,
-                     f"{name}: {ops:g} device operations a call, {own:g} of "
-                     f"them this repository's kernels (at most 8 and 2)")
+        _require(ops == 2 and own == 2,
+                 f"{name}: {ops:g} device operations a call, {own:g} of "
+                 f"them this repository's kernels (2 and 2)")
         rows.append({
             "name": name, "route": "cuda",
             "source": "ndt_slam_tpu_torch/csrc/ndt_kernels.cu",
@@ -343,7 +399,50 @@ def _check_kernels(cfg, scenes):
             "library_ms": library_ms[name], "kernel_us": kernel_us,
             "bound_us": bound_ms * 1e3, "device_ops_per_call": ops,
         })
+    _nn_extra_lines(scenes["synthetic"], fitness_calls)
     return rows
+
+
+def _nn_extra_lines(syn, fitness_calls):
+    """The second entry point of kernel 3 at the real frame, and kernel 3
+    at full load: every slot of the synthetic scene's raw scan against
+    every slot of its target, with its own, operations bound."""
+    import torch
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.ndt.fitness import nn_sq_dists as nn_plain
+
+    kern, plain = fitness_calls
+    ms, plain_ms = _time_ms(kern), _time_ms(plain)
+    ops, own, kernel_us, split = _profile_calls(kern)
+    print(f"[kernels] nn, fitness_score: wrapper {ms:.4f} ms, its kernels "
+          f"alone {kernel_us:.2f} us in {own:g} launches {split}, {ops:g} "
+          f"device operations a call; twin {plain_ms:.4f} ms")
+    _require(ops == 2 and own == 2,
+             f"fitness_score: {ops:g} device operations a call, {own:g} of "
+             f"them this repository's kernels (2 and 2)")
+
+    scan, tgt = syn["scan"], syn["tgt"]
+    n_live, m_live = int(scan.mask.sum()), int(tgt.mask.sum())
+    _require(n_live == scan.capacity and m_live == tgt.capacity,
+             "the synthetic scene fills every source and target slot")
+    args = (scan.xy, scan.mask, tgt.xy, tgt.mask)
+    got, want = kernels.nn_sq_dists(*args), nn_plain(*args)
+    _require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+             "nn at full load equals the twin bit for bit")
+    # 2 sub, 2 mul, 1 add, 1 min a pair, no FMA: one f32 lane-operation
+    # each, against SMs x 128 lanes x the card's highest SM clock
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
+    bound_us = n_live * m_live * 6 / (sms * 128 * mhz * 1e6) * 1e6
+    for label, fn in (("nn_sq_dists", kernels.nn_sq_dists),
+                      ("fitness_score", kernels.fitness_score)):
+        ms = _time_ms(lambda: fn(*args))
+        ops, own, kernel_us, split = _profile_calls(lambda: fn(*args))
+        print(f"[kernels] nn at full load, {label}: {n_live} x {m_live} "
+              f"live pairs, wrapper {ms:.4f} ms, its kernels alone "
+              f"{kernel_us:.2f} us {split}, {ops:g} device operations a "
+              f"call; bound {bound_us:.2f} us (operations: 6 a pair over "
+              f"{sms} SMs x 128 lanes x {mhz:g} MHz)")
 
 
 def _scenes(device, cfg, frames):
@@ -371,7 +470,7 @@ def _scenes(device, cfg, frames):
         src_map = pose2.global_points(pred_deg, src.xy)
         src_map = torch.where(src.mask[:, None], src_map, PAD_COORD)
         return dict(pose_rad=pose_rad, src=src, grid=grid, cg=cg, cand=cand,
-                    src_map=src_map, tgt=tgt)
+                    src_map=src_map, tgt=tgt, scan=scan)
 
     rng = np.random.default_rng(0)
     tgt_np, src_np = _synthetic_scene(rng, cfg.max_local_map_points,

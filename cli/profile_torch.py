@@ -33,7 +33,7 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 KERNEL_TOKENS = ("sgh_kernel", "score_many_kernel", "nn_kernel",
-                 "window_kernel", "window_sum_kernel")
+                 "nn_finish_kernel", "window_kernel", "window_sum_kernel")
 
 
 def _kernel_key(name: str) -> str:
@@ -93,6 +93,7 @@ def _compare(trees: dict, pairs: int, frames, card: str) -> dict:
         ms = {k: v / n for k, v in fe.timer.ms.items()}
         return {"frames_per_s": n / fe.metrics[-1]["wall_s"],
                 "align_ms": ms["align"], "fuse_ms": ms["fuse"],
+                "fitness_ms": ms["fitness"], "map_ms": ms["map"],
                 "other_ms": sum(ms.values()) - ms["align"]}
 
     for name in names:                                   # warm-up, build
@@ -103,7 +104,8 @@ def _compare(trees: dict, pairs: int, frames, card: str) -> dict:
             runs[name].append(one(name))
     a, b = names
     out = {"card": card, "pairs": pairs, "runs": runs}
-    for key in ("frames_per_s", "align_ms", "fuse_ms", "other_ms"):
+    for key in ("frames_per_s", "align_ms", "fuse_ms", "fitness_ms",
+                "map_ms", "other_ms"):
         out["median_" + key] = {
             name: statistics.median(r[key] for r in runs[name])
             for name in names}

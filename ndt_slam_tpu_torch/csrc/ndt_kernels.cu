@@ -18,6 +18,7 @@
 // pointer (capturable in a CUDA graph), and returns cudaGetLastError()
 // (0 on success).
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -28,8 +29,18 @@ constexpr int kWinWarps = kWinThreads / 32;
 constexpr int kSghValues = 12;     // sums a point feeds into kernel 1
 constexpr int kSghRow = 16;        // floats a pose in kernel 1's output
 constexpr int kMaxPoses = 128;     // poses a launch of kernels 1 and 2
-constexpr int kNnThreads = 128;
-constexpr int kNnChunk = 2048;     // targets staged per pass: 3*2048*4 = 24 KB
+constexpr int kNnThreads = 128;    // threads a block of kernel 3
+constexpr int kNnWarps = kNnThreads / 32;
+constexpr int kNnAhead = 4;        // chunks whose mask bytes are read ahead
+constexpr int kNnFinThreads = 1024;  // threads a block of its finish step
+constexpr int kNnFinWarps = kNnFinThreads / 32;
+constexpr int kNnFinShare = 8;     // warps that share one source's partials
+constexpr int kNnFinRounds = 2;    // sources a thread takes at a time
+constexpr int kNnFinAhead = 8;     // rows of partials a thread loads at once
+constexpr int kNnFinStep =         // sources a block takes at a time
+    kNnFinThreads / kNnFinShare * kNnFinRounds;
+constexpr int kNnFinCluster = 8;   // blocks of the fitness finish, one cluster
+constexpr float kBig = 1.0e12f;    // "no neighbour", the twin's BIG
 
 // Operands shared by kernels 1 and 2, passed by value.
 struct Window {
@@ -77,8 +88,9 @@ __device__ __forceinline__ Feature point_feature(const Window& w, int pose,
 
 // Sums of one block's threads in a fixed tree: a shuffle butterfly
 // inside each warp, then the warps in order. Thread k < V of the block
-// ends with the block's sum of value k. Called by every thread.
-template <int V>
+// ends with the block's sum of value k. Called by every thread of a
+// block of W warps.
+template <int V, int W = kWinWarps>
 __device__ __forceinline__ float block_sum(float (&v)[V],
                                            float (*s_warp)[V]) {
 #pragma unroll
@@ -95,7 +107,7 @@ __device__ __forceinline__ float block_sum(float (&v)[V],
   __syncthreads();
   float total = 0.f;
   if (threadIdx.x < V) {
-    for (int wp = 0; wp < kWinWarps; ++wp) total += s_warp[wp][threadIdx.x];
+    for (int wp = 0; wp < W; ++wp) total += s_warp[wp][threadIdx.x];
   }
   return total;
 }
@@ -247,44 +259,377 @@ __global__ void empty_kernel() {}
 
 // Kernel 3 -- replaces _nn_kernel (pallas_kernels.py:303).
 // Brute-force nearest neighbour in the difference form (dx*dx + dy*dy,
-// no |s|^2+|t|^2-2s.t cancellation). Sources go across blockIdx.x; the
-// target range is split across blockIdx.y so 2048 sources still fill
-// the card, and each block streams its range through shared memory in
-// 2048-target chunks, keeping a running minimum per source. A masked
-// target counts as 1e12. Partial minima [splits, N] are reduced by
-// torch (a minimum is exact in any order). Bound on this card: one
-// subtract-multiply-add-min per (source, target) pair, 2048 x 131072 a
-// call, fed from shared memory.
-__global__ void nn_kernel(const float* __restrict__ src,
-                          const float* __restrict__ tgt,
-                          float* __restrict__ part, int n, int m,
-                          int per_split) {
-  __shared__ float s_x[kNnChunk], s_y[kNnChunk], s_v[kNnChunk];
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = i < n;
-  const int lo = blockIdx.y * per_split;
-  const int hi = min(m, lo + per_split);
-  float sx = 0.f, sy = 0.f;
-  if (live) { sx = src[2 * i]; sy = src[2 * i + 1]; }
-  float best = 1.0e12f;
-  for (int base = lo; base < hi; base += kNnChunk) {
-    const int len = min(kNnChunk, hi - base);
-    __syncthreads();
-    for (int t = threadIdx.x; t < len; t += blockDim.x) {
-      s_x[t] = tgt[base + t];
-      s_y[t] = tgt[m + base + t];
-      s_v[t] = tgt[2 * m + base + t];
-    }
-    __syncthreads();
-    if (!live) continue;
-    for (int j = 0; j < len; ++j) {
-      const float dx = sx - s_x[j];
-      const float dy = sy - s_y[j];
-      const float d2 = s_v[j] > 0.f ? dx * dx + dy * dy : 1.0e12f;
-      best = fminf(best, d2);
+// no |s|^2+|t|^2-2s.t cancellation): for each source slot the least
+// squared distance to a valid target, a masked target as 1e12; the
+// finish step clamps at 0, puts 1e12 for a masked source and, in
+// fitness mode, takes the mean over the valid sources. The TPU kernel
+// walks a dense [TILE, chunk] block of every (source, target) slot and
+// carries the running minimum in the output block across its
+// sequential grid axis. Here:
+//
+// What bounds it on this card. At low fill (a young map: ~160 live of
+// 2048 sources, ~6000 live of 131072 targets, under a million live
+// pairs) neither bytes nor operations: the live work is microseconds
+// and the cost is the two launches, the mask bytes every block has to
+// look at, and the one staged chunk a thread walks alone. At full fill
+// (2048 x 131072 live) it is operations: 2 sub, 2 mul, 1 add, 1 min a
+// pair without FMA, 1.6e9 f32 instructions a call against the card's
+// issue rate of SMs x 128 lanes a clock, plus the shared-memory loads
+// that feed them.
+//
+// What the design does about each.
+// - The operands as the callers hold them: [n, 2] and [m, 2] points as
+//   float2, the masks as bytes. No cast, stack or copy before the
+//   launch.
+// - Live pairs only. A block reads the target mask bytes of a chunk, E
+//   a thread (chunks are laid on the 16-byte grid of the mask's address,
+//   so with E >= 4 a thread's run is one aligned word and a sliced view
+//   only sends its ragged head and tail down the byte path), and each
+//   warp compacts its live targets into its own segment of shared
+//   memory by ballot and popcount. A chunk without a live target costs
+//   its mask bytes and nothing else; a source tile without a live
+//   source leaves at once and a warp without one skips the pair loop.
+//   The mask bytes of kNnAhead chunks are read together, so that a run
+//   of dead chunks costs one memory latency, not one each.
+// - A live prefix spread over the card. Chunks are small and dealt
+//   round-robin: block b of B takes chunks b, b+B, ..., so the live
+//   prefix of a registration target lands on every block. Arbitrary
+//   masks (the scattered candidate mask of the dynamic-removal pass)
+//   take the same path.
+// - Sources tiled in registers. A thread holds S sources, so one 8-byte
+//   shared-memory load (a broadcast) serves S pairs and the inner loop
+//   has no mask test. The wrapper picks S = 2 and E = 2: a real scan
+//   fills ~200 of the 2048 source slots, all in the first tile, so the
+//   time of a call is the time one thread needs for its share of the
+//   live targets, which grows with S and with the chunk; S = 4 with 512
+//   targets a chunk is 8 % faster when every slot is live and up to
+//   twice as slow on a real scan (cli/tune_nn_torch.py sweeps both).
+// - The staged chunk is double-buffered: one barrier a chunk.
+// - The twin's NaN rule. fminf drops a NaN where the twin's minimum
+//   carries it, so the pair loop has a second form that carries it,
+//   taken from the first chunk on in which a warp holds a live source
+//   or a chunk a live target that is not finite (finite operands cannot
+//   make a NaN).
+// - No float atomics, no counter kept between calls: the block
+//   partials [B, n] go to a second launch, nn_finish_kernel, which
+//   takes the minimum over them (exact in any order), clamps, applies
+//   the source mask and, in fitness mode, sums in a fixed order.
+//
+// A variant that also returns the index of the nearest target (for a
+// trimmed ICP) would be a template flag on nn_pairs and on the staged
+// segment (the target's index beside its coordinates).
+
+// best[s] = min(best[s], |src_s - t|^2) over the targets of one staged
+// segment. kCarryNan: a NaN distance wins and stays, as in the twin.
+template <bool kCarryNan, int S>
+__device__ __forceinline__ void nn_pairs(const float2* __restrict__ seg,
+                                         int count, const float (&sx)[S],
+                                         const float (&sy)[S],
+                                         float (&best)[S]) {
+#pragma unroll 4
+  for (int j = 0; j < count; ++j) {
+    const float2 t = seg[j];
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const float dx = sx[s] - t.x;
+      const float dy = sy[s] - t.y;
+      const float d2 = dx * dx + dy * dy;
+      if constexpr (kCarryNan)
+        best[s] = (d2 < best[s] || d2 != d2) ? d2 : best[s];
+      else
+        best[s] = fminf(best[s], d2);
     }
   }
-  if (live) part[blockIdx.y * n + i] = best;
+}
+
+__device__ __forceinline__ bool not_finite(float v) {
+  return !(fabsf(v) < INFINITY);
+}
+
+// Bit e of the result: target (v0 + e - head) is inside [0, m) and its
+// mask byte is set. v0 is a multiple of E on the mask's 16-byte grid,
+// so a run of E >= 4 bytes that lies inside is one aligned word.
+template <int E>
+__device__ __forceinline__ unsigned live_bits(
+    const unsigned char* __restrict__ mask, int v0, int head, int m) {
+  static_assert(E == 1 || E == 2 || E == 4 || E == 8 || E == 16,
+                "mask bytes a thread");
+  const int j0 = v0 - head;
+  unsigned bits = 0;
+  if (E >= 4 && j0 >= 0 && j0 + E <= m) {
+    unsigned w[(E + 3) / 4];
+    if constexpr (E == 16) {
+      const uint4 q = __ldg((const uint4*)(mask + j0));
+      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
+    } else if constexpr (E == 8) {
+      const uint2 q = __ldg((const uint2*)(mask + j0));
+      w[0] = q.x; w[1] = q.y;
+    } else {
+      w[0] = __ldg((const unsigned*)(mask + j0));
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e)
+      if ((w[e / 4] >> (8 * (e % 4))) & 0xffu) bits |= 1u << e;
+  } else {
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      const int j = j0 + e;
+      if (j >= 0 && j < m && __ldg(mask + j)) bits |= 1u << e;
+    }
+  }
+  return bits;
+}
+
+// First launch. grid (B, source tiles), kNnThreads threads, S sources
+// a thread, E target mask bytes a thread and chunk. part [B, n]: the
+// block's minimum for each source of its tile. live [tiles, B]: the
+// live targets the block met, or -1 where the tile had no live source
+// and the block left without looking.
+template <int S, int E>
+__global__ void __launch_bounds__(kNnThreads)
+nn_kernel(const float2* __restrict__ src,
+          const unsigned char* __restrict__ src_mask,
+          const float2* __restrict__ tgt,
+          const unsigned char* __restrict__ tgt_mask,
+          float* __restrict__ part, int* __restrict__ live, int n, int m) {
+  constexpr int kChunk = kNnThreads * E;   // targets a chunk
+  constexpr int kSeg = 32 * E;             // targets a warp stages
+  __shared__ float2 s_t[2][kChunk];
+  __shared__ int s_count[2][kNnWarps];
+  __shared__ int s_bad[2][kNnWarps];
+  const unsigned kFull = 0xffffffffu;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int i0 = (blockIdx.y * kNnThreads + threadIdx.x) * S;
+
+  float sx[S], sy[S], best[S];
+  bool src_live = false, src_bad = false;
+#pragma unroll
+  for (int s = 0; s < S; ++s) {
+    const int i = i0 + s;
+    sx[s] = 0.f;
+    sy[s] = 0.f;
+    best[s] = kBig;
+    if (i < n) {
+      const float2 q = src[i];
+      sx[s] = q.x;
+      sy[s] = q.y;
+      if (src_mask[i]) {
+        src_live = true;
+        src_bad |= not_finite(q.x) || not_finite(q.y);
+      }
+    }
+  }
+  if (!__syncthreads_or(src_live)) {
+    if (threadIdx.x == 0) live[blockIdx.y * gridDim.x + blockIdx.x] = -1;
+    return;
+  }
+  const bool warp_live = __any_sync(kFull, src_live);
+  const bool warp_bad = __any_sync(kFull, src_bad);
+
+  // chunks on the 16-byte grid of the mask's address, dealt round-robin
+  const int head = (int)((size_t)tgt_mask & 15);
+  const int chunks = (head + m + kChunk - 1) / kChunk;
+  int met = 0;
+  int buf = 0;
+  // the NaN-carrying pair loop from the first chunk on that needs it:
+  // fminf would drop a NaN that `best` already holds
+  bool carry = warp_bad;
+  for (int c0 = blockIdx.x; c0 < chunks; c0 += kNnAhead * gridDim.x) {
+    // the mask bytes of the next few chunks, their loads in flight
+    // together: most chunks of a young map hold no live target
+    unsigned ahead[kNnAhead];
+#pragma unroll
+    for (int g = 0; g < kNnAhead; ++g) {
+      const int c = c0 + g * gridDim.x;
+      ahead[g] = c < chunks ? live_bits<E>(tgt_mask,
+                                           c * kChunk + threadIdx.x * E,
+                                           head, m)
+                            : 0u;
+    }
+#pragma unroll
+    for (int g = 0; g < kNnAhead; ++g) {
+      const int c = c0 + g * gridDim.x;
+      if (c >= chunks) break;
+      const int v0 = c * kChunk + threadIdx.x * E;
+      float2* seg = s_t[buf] + warp * kSeg;
+      float2 t[E];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        t[e] = make_float2(0.f, 0.f);
+        if ((ahead[g] >> e) & 1u) t[e] = tgt[v0 + e - head];
+      }
+      int count = 0;
+      bool bad = false;
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        const bool on = (ahead[g] >> e) & 1u;
+        const unsigned vote = __ballot_sync(kFull, on);
+        if (on) seg[count + __popc(vote & ((1u << lane) - 1u))] = t[e];
+        bad |= not_finite(t[e].x) || not_finite(t[e].y);
+        count += __popc(vote);
+      }
+      bad = __any_sync(kFull, bad);
+      if (lane == 0) {
+        s_count[buf][warp] = count;
+        s_bad[buf][warp] = bad;
+      }
+      // One barrier a chunk: this chunk is staged in s_t[buf] while a
+      // slower thread may still read s_t[buf ^ 1]; nobody writes that
+      // one again before passing the next barrier.
+      __syncthreads();
+      int total = 0;
+#pragma unroll
+      for (int w = 0; w < kNnWarps; ++w) {
+        carry |= s_bad[buf][w] != 0;
+        total += s_count[buf][w];
+      }
+      met += total;
+      if (warp_live && total > 0) {
+#pragma unroll
+        for (int w = 0; w < kNnWarps; ++w) {
+          const float2* from = s_t[buf] + w * kSeg;
+          if (carry)
+            nn_pairs<true, S>(from, s_count[buf][w], sx, sy, best);
+          else
+            nn_pairs<false, S>(from, s_count[buf][w], sx, sy, best);
+        }
+      }
+      buf ^= 1;
+    }
+  }
+  if (threadIdx.x == 0) live[blockIdx.y * gridDim.x + blockIdx.x] = met;
+#pragma unroll
+  for (int s = 0; s < S; ++s)
+    if (i0 + s < n) part[(size_t)blockIdx.x * n + i0 + s] = best[s];
+}
+
+// The twin's minimum: a NaN on either side wins.
+__device__ __forceinline__ float nan_min(float a, float b) {
+  return (b < a || b != b) ? b : a;
+}
+
+// Second launch of kernel 3, kNnFinThreads threads. A warp reads 32
+// neighbouring sources of one row of the partials [B, n] as one line;
+// kNnFinShare warps share the rows of the same sources (warp w takes
+// rows w % 8, w % 8 + 8, ...) and meet in shared memory; a thread takes
+// kNnFinRounds sources at a time, so a block takes 256 a step. Inside a
+// live warp the loads are unconditional (a lane without a live source
+// reads column 0 and drops it: a branch around each load would put it
+// and its use into a basic block of their own, one L2 latency after the
+// other). d2_out
+// [n] (may be null): minimum over the partials, clamped at 0, 1e12 for
+// a masked source. kFitness (launched as one cluster of kNnFinCluster
+// blocks): fit_out[0] = the mean of d2 over the live sources, or 1e12
+// with no live source or no live target (n_live entries of `live`, any
+// > 0). The sum runs per thread in step order, then through block_sum,
+// then over the cluster's blocks in rank order, read by block 0 from
+// their shared memory: a fixed order, no atomics, no third launch.
+template <bool kFitness>
+__global__ void __launch_bounds__(kNnFinThreads)
+nn_finish_kernel(const float* __restrict__ part,
+                 const int* __restrict__ live,
+                 const unsigned char* __restrict__ src_mask,
+                 float* __restrict__ d2_out, float* __restrict__ fit_out,
+                 int n, int blocks, int n_live) {
+  constexpr int kPerRound = kNnFinThreads / kNnFinShare;   // 128 sources
+  __shared__ float s_min[kNnFinRounds][kNnFinShare][kPerRound];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int sub = warp % kNnFinShare;
+  const int slot = warp / kNnFinShare * 32 + lane;   // source of the round
+  float v[3] = {0.f, 0.f, 0.f};   // sum of d2, live sources, live targets
+  for (int base = blockIdx.x * kNnFinStep; base < n;
+       base += gridDim.x * kNnFinStep) {
+    int idx[kNnFinRounds];
+    bool on[kNnFinRounds];
+    float best[kNnFinRounds];
+#pragma unroll
+    for (int q = 0; q < kNnFinRounds; ++q) {
+      idx[q] = base + q * kPerRound + slot;
+      on[q] = idx[q] < n && __ldg(src_mask + min(idx[q], n - 1));
+      best[q] = kBig;
+    }
+    // A warp without a live source skips the rows. The others walk
+    // them by pointer (the address arithmetic of 1024 threads, not the
+    // loads, was what this kernel spent its time on), kNnFinAhead rows a
+    // pass with every load issued before the first use.
+    bool any_on = false;
+#pragma unroll
+    for (int q = 0; q < kNnFinRounds; ++q) any_on |= on[q];
+    if (__any_sync(0xffffffffu, any_on)) {
+      const size_t stride = (size_t)kNnFinShare * n;
+      const float* p[kNnFinRounds];
+#pragma unroll
+      for (int q = 0; q < kNnFinRounds; ++q)
+        p[q] = part + (size_t)sub * n + (on[q] ? idx[q] : 0);
+      int b = sub;
+      for (; b + (kNnFinAhead - 1) * kNnFinShare < blocks;
+           b += kNnFinAhead * kNnFinShare) {
+        float row[kNnFinAhead][kNnFinRounds];
+#pragma unroll
+        for (int u = 0; u < kNnFinAhead; ++u) {
+#pragma unroll
+          for (int q = 0; q < kNnFinRounds; ++q)
+            row[u][q] = __ldg(p[q] + u * stride);
+        }
+#pragma unroll
+        for (int q = 0; q < kNnFinRounds; ++q) {
+          p[q] += kNnFinAhead * stride;
+#pragma unroll
+          for (int u = 0; u < kNnFinAhead; ++u)
+            best[q] = nan_min(best[q], row[u][q]);
+        }
+      }
+      for (; b < blocks; b += kNnFinShare) {
+#pragma unroll
+        for (int q = 0; q < kNnFinRounds; ++q) {
+          best[q] = nan_min(best[q], __ldg(p[q]));
+          p[q] += stride;
+        }
+      }
+    }
+    __syncthreads();   // the step before has been read
+#pragma unroll
+    for (int q = 0; q < kNnFinRounds; ++q) s_min[q][sub][slot] = best[q];
+    __syncthreads();
+    if (sub == 0) {
+#pragma unroll
+      for (int q = 0; q < kNnFinRounds; ++q) {
+        float d2 = best[q];
+#pragma unroll
+        for (int w = 1; w < kNnFinShare; ++w)
+          d2 = nan_min(d2, s_min[q][w][slot]);
+        d2 = d2 < 0.f ? 0.f : d2;   // a NaN stays
+        d2 = on[q] ? d2 : kBig;
+        v[0] += on[q] ? d2 : 0.f;
+        v[1] += on[q] ? 1.f : 0.f;
+        if (idx[q] < n && d2_out != nullptr) d2_out[idx[q]] = d2;
+      }
+    }
+  }
+  if constexpr (kFitness) {
+    namespace cg = cooperative_groups;
+    __shared__ float s_warp[kNnFinWarps][3];
+    __shared__ float s_total[3];
+    cg::cluster_group cluster = cg::this_cluster();
+    for (int k = blockIdx.x * kNnFinThreads + threadIdx.x; k < n_live;
+         k += gridDim.x * kNnFinThreads)
+      v[2] += live[k] > 0 ? 1.f : 0.f;
+    const float total = block_sum<3, kNnFinWarps>(v, s_warp);
+    if (threadIdx.x < 3) s_total[threadIdx.x] = total;
+    cluster.sync();
+    if (cluster.block_rank() == 0 && threadIdx.x == 0) {
+      float sum = 0.f, count = 0.f, targets = 0.f;
+      for (unsigned r = 0; r < cluster.num_blocks(); ++r) {
+        const float* theirs = cluster.map_shared_rank(s_total, r);
+        sum += theirs[0];
+        count += theirs[1];
+        targets += theirs[2];
+      }
+      const float mean = sum / fmaxf(count, 1.f);
+      fit_out[0] = (count > 0.f && targets > 0.f) ? mean : kBig;
+    }
+    cluster.sync();   // the others' shared memory lives until it is read
+  }
 }
 
 // Both launches of kernel 1 (derivs) or kernel 2 on `stream`.
@@ -368,18 +713,58 @@ int ndt_empty(void* stream) {
   return (int)cudaGetLastError();
 }
 
-int ndt_nn(const float* src, const float* tgt, float* part, int n, int m,
-           int splits, void* stream) {
-  if (n > 0 && splits > 0) {
-    const int per_split = (m + splits - 1) / splits;
-    const dim3 grid((n + kNnThreads - 1) / kNnThreads, splits);
-    nn_kernel<<<grid, kNnThreads, 0, (cudaStream_t)stream>>>(
-        src, tgt, part, n, m, per_split);
+// Kernel 3, both launches on `stream`. part [blocks, n] and live
+// [tiles, blocks] are scratch, tiles = ceil(n / (128 * sources)).
+// d2_out [n] or, with fit_out [1] not null, the fitness mean. blocks:
+// the blocks that share the target chunks of one source tile.
+// (sources, mask_bytes) a thread: (2, 2), what the wrapper asks for, 256
+// targets a chunk; (4, 4) and (1, 2) are built for the tuning script to
+// measure it against.
+int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
+           const unsigned char* tgt_mask, float* part, int* live,
+           float* d2_out, float* fit_out, int n, int m, int blocks,
+           int sources, int mask_bytes, void* stream) {
+  if (n < 1 || m < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int tile = kNnThreads * sources;
+  const int tiles = (n + tile - 1) / tile;
+  const dim3 grid(blocks, tiles);
+  const float2* s2 = (const float2*)src;
+  const float2* t2 = (const float2*)tgt;
+#define NDT_NN_CASE(S, E)                                                  \
+  if (sources == S && mask_bytes == E)                                     \
+    nn_kernel<S, E><<<grid, kNnThreads, 0, st>>>(s2, src_mask, t2,         \
+                                                 tgt_mask, part, live, n, m)
+  NDT_NN_CASE(2, 2); else NDT_NN_CASE(4, 4); else NDT_NN_CASE(1, 2);
+  else return (int)cudaErrorInvalidValue;
+#undef NDT_NN_CASE
+  if (fit_out != nullptr) {
+    cudaLaunchAttribute cluster;
+    cluster.id = cudaLaunchAttributeClusterDimension;
+    cluster.val.clusterDim.x = kNnFinCluster;
+    cluster.val.clusterDim.y = 1;
+    cluster.val.clusterDim.z = 1;
+    cudaLaunchConfig_t config = {};
+    config.gridDim = dim3(kNnFinCluster);
+    config.blockDim = dim3(kNnFinThreads);
+    config.stream = st;
+    config.attrs = &cluster;
+    config.numAttrs = 1;
+    const cudaError_t rc = cudaLaunchKernelEx(
+        &config, nn_finish_kernel<true>, (const float*)part,
+        (const int*)live, src_mask, d2_out, fit_out, n, blocks,
+        tiles * blocks);
+    if (rc != cudaSuccess) return (int)rc;
+  } else {
+    nn_finish_kernel<false><<<(n + kNnFinStep - 1) / kNnFinStep, kNnFinThreads,
+                              0, st>>>(part, live, src_mask, d2_out, fit_out,
+                                       n, blocks, tiles * blocks);
   }
   return (int)cudaGetLastError();
 }
 
 int ndt_window_threads() { return kWinThreads; }
 int ndt_max_poses() { return kMaxPoses; }
+int ndt_nn_threads() { return kNnThreads; }
 
 }  // extern "C"

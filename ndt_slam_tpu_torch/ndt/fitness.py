@@ -6,9 +6,9 @@ taken in the difference form, dx*dx + dy*dy, as the TPU kernel does
 (pallas_kernels.py:310-313): the |s|^2+|t|^2-2s.t matmul form would
 cancel at map-scale coordinates and, on the card, could meet TF32.
 
-`nn_sq_dists` here is the plain twin of the CUDA NN kernel;
-`fitness_score` goes through `kernels.nn_sq_dists`, which picks the
-kernel or this twin by device.
+`nn_sq_dists` and `fitness_score_plain` here are the plain twins of
+the CUDA NN kernel's two entry points; `fitness_score` goes through
+`kernels.fitness_score`, which picks the kernel or the twin by device.
 """
 
 from __future__ import annotations
@@ -35,14 +35,20 @@ def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask, chunk: int = 4096):
     return torch.where(src_mask, best, BIG)
 
 
-def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask):
-    """Mean squared NN distance over valid sources; BIG when there are
-    no sources or no valid targets."""
-    from ndt_slam_tpu_torch.ndt.kernels import nn_sq_dists as nn
-
-    d2 = nn(src_xy, src_mask, tgt_xy, tgt_mask)
+def fitness_score_plain(src_xy, src_mask, tgt_xy, tgt_mask):
+    """`fitness_score` in plain tensor operations, on any device."""
+    d2 = nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask)
     n = src_mask.sum(dtype=torch.float32)
     have_tgt = tgt_mask.any()
     total = torch.sum(torch.where(src_mask, d2, 0.0))
     mean = total / torch.clamp(n, min=1.0)
     return torch.where((n > 0) & have_tgt, mean, BIG)
+
+
+def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask):
+    """Mean squared NN distance over valid sources; BIG when there are
+    no sources or no valid targets. A CUDA tensor goes to the kernel, a
+    CPU tensor to `fitness_score_plain`."""
+    from ndt_slam_tpu_torch.ndt.kernels import fitness_score as routed
+
+    return routed(src_xy, src_mask, tgt_xy, tgt_mask)

@@ -9,10 +9,12 @@ Each wrapper below replaces one Pallas TPU kernel of
 | `ndt_score_grad_hess` | `_sgh_kernel` (:106)      | `compact.ndt_score_grad_hess_compact` |
 | `ndt_scores`          | `_score_many_kernel` (:213) | `compact.ndt_negative_score_compact` per pose |
 | `nn_sq_dists`         | `_nn_kernel` (:303)       | `fitness.nn_sq_dists`               |
+| `fitness_score`       | `_nn_kernel` + the mean of `fitness_score_pallas` (:369) | `fitness.fitness_score_plain` |
 
 The device of the input tensors picks the route: a CPU tensor runs the
 twin; a CUDA tensor launches the kernel or raises. There is no
-fallback. Each wrapper counts its calls that launched in `.launches`.
+fallback. Each wrapper counts its calls that launched in `.launches`;
+`launch_counts()` adds the two entry points of kernel 3 up under `nn`.
 
 The first two kernels are bound on the card by latency, not by bytes or
 operations: a call touches ~0.3 MB and ~9 table cells a point. The TPU
@@ -26,6 +28,25 @@ operation: nothing of size N is computed, stacked or copied in torch,
 every scalar goes by value and every tensor by pointer, and nothing
 waits for the host.
 
+The third kernel is bound by neither bytes nor operations while the
+map is young (some 160 live of 2048 source slots and a few thousand
+live of 131072 target slots: the live pairs are microseconds of work,
+the cost is two launches and the mask bytes every block must look at)
+and by f32 operations when every slot is live (2 sub, 2 mul, 1 add, 1
+min a pair, no FMA, against SMs x 128 lanes a clock). The TPU kernel
+walks every (source, target) slot as a dense block. Here the kernel
+reads the operands as the callers hold them (`[N,2]` and `[M,2]`
+points, bool masks at any byte offset), stages only live targets
+(chunks of 256 dealt round-robin to the blocks of a source tile, each
+warp compacting its live ones into shared memory by ballot), holds
+`NN_SOURCES` sources a thread in registers so that one shared-memory
+load serves that many pairs, and carries a NaN as the twin's minimum
+does. A second launch takes the minimum over the block partials,
+clamps, applies the source mask and, for `fitness_score`, sums the
+valid sources in a fixed order across one cluster of 8 blocks. Both
+entry points are two launches and no tensor operation, and `[N]` equals
+the twin bit for bit.
+
 The library is built at first use by nvcc (sm_90a, no fast math, no
 FMA contraction) into `build/kernels/` at the repository root, keyed by
 the source's hash, and loaded with ctypes: a plain C interface, every
@@ -37,7 +58,6 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
-import math
 import os
 import shutil
 import subprocess
@@ -52,7 +72,9 @@ from ndt_slam_tpu_torch.ndt.compact import (
     ndt_negative_score_compact,
     ndt_score_grad_hess_compact,
 )
-from ndt_slam_tpu_torch.ndt.fitness import BIG, nn_sq_dists as _nn_plain
+from ndt_slam_tpu_torch.ndt.fitness import (
+    BIG, fitness_score_plain as _fitness_plain, nn_sq_dists as _nn_plain,
+)
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ndt_kernels.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -64,6 +86,10 @@ MAX_POSES = 128      # kMaxPoses in the source
 WINDOW_THREADS = 128  # kWinThreads in the source
 SGH_VALUES = 12      # kSghValues: sums a block writes for one pose
 SGH_ROW = 16         # kSghRow: E, matched, grad[3], hess[3,3], 2 pad
+NN_THREADS = 128     # kNnThreads in the source
+NN_SOURCES = 2       # sources a thread of kernel 3 holds
+NN_MASK_BYTES = 2    # target mask bytes a thread reads a chunk
+NN_WAVES = 16        # blocks of kernel 3 an SM, over all source tiles
 
 _lib: Optional[ctypes.CDLL] = None
 
@@ -112,18 +138,19 @@ def _load() -> ctypes.CDLL:
         lib.ndt_sgh.argtypes = window + [f, f, p]
         lib.ndt_score_many.argtypes = window + [p]
         lib.ndt_features.argtypes = [p, p, p, p, i, i, f, p]
-        lib.ndt_nn.argtypes = [p, p, p, i, i, i, p]
+        lib.ndt_nn.argtypes = [p] * 8 + [i] * 5 + [p]
         lib.ndt_empty.argtypes = [p]
         for fn in (lib.ndt_sgh, lib.ndt_score_many, lib.ndt_features,
-                   lib.ndt_nn, lib.ndt_empty, lib.ndt_window_threads,
-                   lib.ndt_max_poses):
+                   lib.ndt_nn, lib.ndt_empty):
             fn.restype = i
-        lib.ndt_window_threads.argtypes = []
-        lib.ndt_max_poses.argtypes = []
-        if (lib.ndt_window_threads(), lib.ndt_max_poses()) != (
-                WINDOW_THREADS, MAX_POSES):
+        sizes = []
+        for fn in (lib.ndt_window_threads, lib.ndt_max_poses,
+                   lib.ndt_nn_threads):
+            fn.restype, fn.argtypes = i, []
+            sizes.append(fn())
+        if sizes != [WINDOW_THREADS, MAX_POSES, NN_THREADS]:
             raise RuntimeError("kernel library and wrapper disagree on "
-                               "the block size or the pose limit")
+                               "a block size or the pose limit")
         _lib = lib
     return _lib
 
@@ -258,54 +285,100 @@ def empty_launch(device: torch.device):
            "empty")
 
 
-def _nn_splits(device: torch.device, n_blocks: int, m: int) -> int:
-    """Target-range splits so sources x splits blocks fill ~2 waves of
-    the card's SMs, with at least 1024 targets a split."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(math.ceil(m / 1024), math.ceil(2 * sms / n_blocks)))
+_sm_count: dict = {}
 
 
-def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask):
+def _nn_blocks(device: torch.device, tiles: int, m: int,
+               mask_bytes: int) -> int:
+    """Blocks that share the target chunks of one source tile: NN_WAVES
+    blocks an SM over all tiles, and no more than there are chunks (the
+    chunks lie on the 16-byte grid of the mask's address, so a view may
+    need one more than ceil(m / chunk))."""
+    if device not in _sm_count:
+        _sm_count[device] = torch.cuda.get_device_properties(
+            device).multi_processor_count
+    chunks = -(-(m + 15) // (NN_THREADS * mask_bytes))
+    return max(1, min(chunks, -(-NN_WAVES * _sm_count[device] // tiles)))
+
+
+def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness: bool,
+               blocks: Optional[int] = None, sources: int = NN_SOURCES,
+               mask_bytes: int = NN_MASK_BYTES) -> torch.Tensor:
+    """Check the operands, allocate the output and the scratch, launch
+    `nn_kernel` and `nn_finish_kernel`; returns d2 [N] or the fitness
+    scalar. N, M >= 1."""
+    n, m, device = src_xy.shape[0], tgt_xy.shape[0], src_xy.device
+    tiles = -(-n // (NN_THREADS * sources))
+    if blocks is None:
+        blocks = _nn_blocks(device, tiles, m, mask_bytes)
+    part = torch.empty((blocks, n), dtype=torch.float32, device=device)
+    live = torch.empty((tiles, blocks), dtype=torch.int32, device=device)
+    out = torch.empty(() if fitness else (n,), dtype=torch.float32,
+                      device=device)
+    _check(_load().ndt_nn(
+        _arg(src_xy, (n, 2)), _arg(src_mask, (n,), torch.bool),
+        _arg(tgt_xy, (m, 2)), _arg(tgt_mask, (m,), torch.bool),
+        part.data_ptr(), live.data_ptr(),
+        None if fitness else out.data_ptr(),
+        out.data_ptr() if fitness else None,
+        n, m, int(blocks), int(sources), int(mask_bytes), _stream(src_xy),
+    ), "nn")
+    return out
+
+
+def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask, **tuning):
     """Per-source squared distance to the nearest valid target ([N];
-    1e12 where the source is masked or no target is valid).
+    1e12 where the source is masked or no target is valid; NaN where a
+    valid source or target is NaN, as the twin gives it).
 
-    CUDA: `nn_kernel` over (source blocks x target splits), then the
-    minimum over splits, the clamp at 0 and the source mask in torch."""
+    CUDA: `nn_kernel` over (blocks x source tiles), then
+    `nn_finish_kernel`: the minimum over the block partials, the clamp
+    at 0 and the source mask. Two launches, no tensor operation; equal
+    to the twin bit for bit. `tuning` (`blocks`, `sources`, `mask_bytes`)
+    is for cli/tune_nn_torch.py; callers leave it out."""
     if not _route(src_xy):
         return _nn_plain(src_xy, src_mask, tgt_xy, tgt_mask)
-    n, m = src_xy.shape[0], tgt_xy.shape[0]
-    if m == 0:
-        return torch.full((n,), BIG, dtype=torch.float32,
+    if src_xy.shape[0] == 0 or tgt_xy.shape[0] == 0:
+        return torch.full((src_xy.shape[0],), BIG, dtype=torch.float32,
                           device=src_xy.device)
-    src = src_xy.contiguous()
-    tgt = torch.stack((tgt_xy[:, 0], tgt_xy[:, 1],
-                       tgt_mask.to(torch.float32))).contiguous()
-    splits = _nn_splits(src_xy.device, math.ceil(n / 128), m)
-    part = torch.empty((splits, n), dtype=torch.float32,
-                       device=src_xy.device)
-    _check(_load().ndt_nn(
-        _arg(src, (n, 2)), _arg(tgt, (3, m)), _arg(part, (splits, n)),
-        n, m, splits, _stream(src_xy),
-    ), "nn")
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, False, **tuning)
     nn_sq_dists.launches += 1
-    best = torch.clamp(part.amin(dim=0), min=0.0)
-    return torch.where(src_mask, best, BIG)
+    return out
 
 
+def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask, **tuning):
+    """Mean over the valid sources of `nn_sq_dists` (a scalar; 1e12
+    with no valid source or no valid target).
+
+    CUDA: the same two launches; the finish step also sums the
+    distances of the valid sources in a fixed order and divides, so the
+    score is the twin's up to the order of that one sum."""
+    if not _route(src_xy):
+        return _fitness_plain(src_xy, src_mask, tgt_xy, tgt_mask)
+    if src_xy.shape[0] == 0 or tgt_xy.shape[0] == 0:
+        return torch.full((), BIG, dtype=torch.float32, device=src_xy.device)
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, True, **tuning)
+    fitness_score.launches += 1
+    return out
+
+
+# kernel name -> the wrappers that launch it
 WRAPPERS = {
-    "sgh": ndt_score_grad_hess,
-    "score_many": ndt_scores,
-    "nn": nn_sq_dists,
+    "sgh": (ndt_score_grad_hess,),
+    "score_many": (ndt_scores,),
+    "nn": (nn_sq_dists, fitness_score),
 }
 
 
 def reset_launch_counts():
-    for fn in WRAPPERS.values():
-        fn.launches = 0
+    for fns in WRAPPERS.values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def launch_counts() -> dict:
-    return {name: fn.launches for name, fn in WRAPPERS.items()}
+    return {name: sum(fn.launches for fn in fns)
+            for name, fns in WRAPPERS.items()}
 
 
 reset_launch_counts()

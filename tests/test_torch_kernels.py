@@ -5,11 +5,14 @@ on a machine without it; `tests/conftest.py` imports JAX, so run it
 there with `python -m pytest --noconftest tests/test_torch_kernels.py`.
 Inputs are seeded numpy data at the main path's production shapes
 (2048 source slots, a 2048-cell table, 131072 targets, 12 candidates);
-tolerances are the ROADMAP parity bar, with matched exact and NN
-distances at atol 1e-6 (kernel and twin take the same f32 operations
-per pair). The two window kernels also run with a 5x5 neighbourhood, an
-overflowed table, a source partly off the grid window, an all-masked
-source, 3 poses at once (sgh) and 40 candidates (score_many).
+tolerances are the ROADMAP parity bar, with matched exact. The two
+window kernels also run with a 5x5 neighbourhood, an overflowed table, a
+source partly off the grid window, an all-masked source, 3 poses at
+once (sgh) and 40 candidates (score_many). The nearest-neighbour kernel
+equals its twin bit for bit (the same f32 operations a pair, and a
+minimum is exact in any order) over sizes, prefix and scattered masks,
+mask views off the 16-byte grid, empty sides and NaN operands; its
+fitness mean agrees to rtol 1e-6 (one sum in another order).
 """
 
 import numpy as np
@@ -22,7 +25,9 @@ from ndt_slam_tpu_torch.ndt.compact import (
     compact_grid, ndt_negative_score_compact, ndt_score_grad_hess_compact,
     point_features,
 )
-from ndt_slam_tpu_torch.ndt.fitness import nn_sq_dists
+from ndt_slam_tpu_torch.ndt.fitness import (
+    BIG, fitness_score_plain, nn_sq_dists,
+)
 from ndt_slam_tpu_torch.ndt.grid import build_grid
 from ndt_slam_tpu_torch.ndt.score import gauss_constants
 
@@ -136,9 +141,110 @@ def test_kernel_matches_twin_on_card(scene, kernel, case):
         smap = torch.where(src.mask[:, None], src.xy, PAD_COORD)
         got = kernels.nn_sq_dists(smap, src.mask, t.xy, t.mask)
         want = nn_sq_dists(smap, src.mask, t.xy, t.mask)
-        np.testing.assert_allclose(_np(got), _np(want), rtol=0, atol=1e-6)
+        assert _same(got, want)
     torch.cuda.synchronize()
     assert kernels.launch_counts()[kernel] == before + calls
+
+
+def _nn_inputs(device, n, m, masks, seed):
+    """Seeded sources and targets in a 40 m square; `masks`: "prefix"
+    (the first three quarters of the sources, the first third of the
+    targets) or "scattered" (70 % and 5 % at random)."""
+    rng = np.random.default_rng(seed)
+    src = torch.from_numpy(
+        rng.uniform(-20, 20, (n, 2)).astype(np.float32)).to(device)
+    tgt = torch.from_numpy(
+        rng.uniform(-20, 20, (m, 2)).astype(np.float32)).to(device)
+    if masks == "prefix":
+        sm = torch.arange(n, device=device) < max(1, n * 3 // 4)
+        tm = torch.arange(m, device=device) < max(1, m // 3)
+    else:
+        sm = torch.from_numpy(rng.uniform(size=n) < 0.7).to(device)
+        tm = torch.from_numpy(rng.uniform(size=m) < 0.05).to(device)
+    return src, sm, tgt, tm
+
+
+def _same(a, b):
+    """Equal bit for bit; a NaN equals a NaN whatever its payload."""
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def _assert_nn_equals_twin(src, sm, tgt, tm):
+    before = kernels.launch_counts()["nn"]
+    got = kernels.nn_sq_dists(src, sm, tgt, tm)
+    fit = kernels.fitness_score(src, sm, tgt, tm)
+    torch.cuda.synchronize()
+    want = nn_sq_dists(src, sm, tgt, tm)
+    assert _same(got, want)
+    np.testing.assert_allclose(
+        fit.item(), fitness_score_plain(src, sm, tgt, tm).item(), rtol=1e-6)
+    launched = 2 if src.shape[0] and tgt.shape[0] else 0
+    assert kernels.launch_counts()["nn"] == before + launched
+    return got, fit
+
+
+@pytest.mark.parametrize("masks", ["prefix", "scattered"])
+@pytest.mark.parametrize("n", [100, 2048])
+@pytest.mark.parametrize("m", [1, 300, 131072])
+def test_nn_equals_twin_bit_for_bit(cuda, m, n, masks):
+    src, sm, tgt, tm = _nn_inputs(cuda, n, m, masks, seed=m + n)
+    got, _ = _assert_nn_equals_twin(src, sm, tgt, tm)
+    assert (got[~sm] == BIG).all()
+    if bool(tm.any()):
+        assert (got[sm] <= 3200.0).all()
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3, 7, 15, 16, 17])
+def test_nn_takes_mask_views_off_the_16_byte_grid(cuda, offset):
+    """A sliced mask such as `a.mask[:capacity]` or `mask[k:]` starts
+    anywhere; its ragged head and tail take the kernel's scalar path."""
+    src, sm, tgt, tm = _nn_inputs(cuda, 300, 5000 + 33, "scattered", seed=9)
+    end = 5000 + offset
+    _assert_nn_equals_twin(src, sm, tgt[offset:end], tm[offset:end])
+
+
+@pytest.mark.parametrize("case", [
+    "no_target", "no_source", "one_empty_slot", "zero_targets",
+    "nan_source", "inf_source", "nan_target", "masked_nan_target",
+    "pads_at_1e8",
+])
+def test_nn_empty_sides_and_non_finite_operands(cuda, case):
+    """The masks decide, not the coordinates: 1e12 (and a fitness of
+    1e12) without a valid target or source; a NaN where the twin's
+    minimum carries one, none from a masked slot."""
+    src, sm, tgt, tm = _nn_inputs(cuda, 700, 3000, "scattered", seed=4)
+    live_s = int(torch.nonzero(sm)[0])
+    live_t, dead_t = int(torch.nonzero(tm)[0]), int(torch.nonzero(~tm)[0])
+    if case == "no_target":
+        tm = torch.zeros_like(tm)
+    elif case == "no_source":
+        sm = torch.zeros_like(sm)
+    elif case == "one_empty_slot":
+        tgt, tm = tgt[:1], torch.zeros_like(tm[:1])
+    elif case == "zero_targets":
+        tgt, tm = tgt[:0], tm[:0]
+    elif case == "nan_source":
+        src[live_s, 0] = float("nan")
+    elif case == "inf_source":
+        src[live_s, 1] = float("inf")
+    elif case == "nan_target":
+        tgt[live_t, 1] = float("nan")
+    elif case == "masked_nan_target":
+        tgt[dead_t, 0] = float("nan")
+    elif case == "pads_at_1e8":
+        src = torch.where(sm[:, None], src, PAD_COORD)
+        tgt = torch.where(tm[:, None], tgt, PAD_COORD)
+    got, fit = _assert_nn_equals_twin(src, sm, tgt, tm)
+    if case in ("no_target", "no_source", "one_empty_slot", "zero_targets"):
+        assert (got == BIG).all() and float(fit) == float(np.float32(BIG))
+    elif case == "nan_source":
+        assert bool(torch.isnan(got[live_s])) and bool(torch.isnan(fit))
+        assert int(torch.isnan(got).sum()) == 1
+    elif case == "nan_target":
+        assert bool(torch.isnan(got[sm]).all()) and (got[~sm] == BIG).all()
+    else:
+        assert bool(torch.isfinite(got).all()) and bool(torch.isfinite(fit))
 
 
 def test_kernel_features_equal_the_twins_bit_for_bit(scene):
@@ -151,7 +257,7 @@ def test_kernel_features_equal_the_twins_bit_for_bit(scene):
     got = kernels.kernel_point_features(poses, src.xy, cg)
     px, py, fx, fy, _, _ = point_features(poses, src.xy, cg)
     want = torch.stack((px, py, fx, fy), dim=-1)
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    assert _same(got, want)
 
 
 def test_kernel_rejects_a_bad_operand(scene):
@@ -160,6 +266,12 @@ def test_kernel_rejects_a_bad_operand(scene):
     with pytest.raises(ValueError, match="contiguous float32"):
         kernels.nn_sq_dists(src.xy.double(), src.mask, scene["tgt"].xy,
                             scene["tgt"].mask)
+    with pytest.raises(ValueError, match="contiguous float32"):
+        kernels.fitness_score(src.xy, src.mask, scene["tgt"].xy[::2],
+                              scene["tgt"].mask[::2])
+    with pytest.raises(ValueError, match="contiguous bool"):
+        kernels.nn_sq_dists(src.xy, src.mask.to(torch.uint8),
+                            scene["tgt"].xy, scene["tgt"].mask)
     with pytest.raises(ValueError, match="contiguous bool"):
         kernels.ndt_scores(scene["pose"][None, :], src.xy,
                            src.mask.to(torch.float32), scene["cg"],
