@@ -127,10 +127,20 @@ def _empty_launch_us():
     return _time_ms(lambda: kernels.empty_launch(dev), reps=50) * 1e3, prof_us
 
 
-def _bound(n_bytes: float, flops: float):
+def _f32_lanes():
+    """(SMs, highest SM clock in MHz, f32 instructions a second without
+    FMA: SMs x 128 lanes x that clock)."""
+    import torch
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
+    return sms, mhz, sms * 128 * mhz * 1e6
+
+
+def _bound(n_bytes: float, ops: float, ops_per_s: float = F32_FLOP_PER_S):
     """Least time for the work on this card: (ms, what bounds it)."""
     t_bytes = float(n_bytes) / HBM_BYTES_PER_S
-    t_ops = float(flops) / F32_FLOP_PER_S
+    t_ops = float(ops) / ops_per_s
     return (max(t_bytes, t_ops) * 1e3,
             "bytes" if t_bytes >= t_ops else "operations")
 
@@ -347,8 +357,10 @@ def _check_kernels(cfg, scenes):
                       n_live * 20 + pairs[0] * 45),
         "score_many": _bound(window_bytes(nc, pairs[1:].sum(), nc),
                              nc * n_live * 20 + pairs[1:].sum() * 25),
-        # 2 sub, 2 mul, add, min a valid pair
-        "nn": _bound(n * 9 + m * 9 + n * 4, n_live * m_live * 6),
+        # both masks, the live points, d2 out; 2 sub, 2 mul, add, min a
+        # live pair, one f32 instruction each (the build forbids FMA)
+        "nn": _bound(n + m + 8 * (n_live + m_live) + 4 * n,
+                     n_live * m_live * 6, _f32_lanes()[2]),
     }
 
     print(f"[kernels] bounds from {n_live} live of {n} source slots, "
@@ -429,11 +441,10 @@ def _nn_extra_lines(syn, fitness_calls):
     got, want = kernels.nn_sq_dists(*args), nn_plain(*args)
     _require(torch.equal(got.view(torch.int32), want.view(torch.int32)),
              "nn at full load equals the twin bit for bit")
-    # 2 sub, 2 mul, 1 add, 1 min a pair, no FMA: one f32 lane-operation
+    # 2 sub, 2 mul, 1 add, 1 min a pair, no FMA: one f32 instruction
     # each, against SMs x 128 lanes x the card's highest SM clock
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    mhz = float(_nvidia_smi("clocks.max.sm").split()[0])
-    bound_us = n_live * m_live * 6 / (sms * 128 * mhz * 1e6) * 1e6
+    sms, mhz, lanes_per_s = _f32_lanes()
+    bound_us = n_live * m_live * 6 / lanes_per_s * 1e6
     for label, fn in (("nn_sq_dists", kernels.nn_sq_dists),
                       ("fitness_score", kernels.fitness_score)):
         ms = _time_ms(lambda: fn(*args))

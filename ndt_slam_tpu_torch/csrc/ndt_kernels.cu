@@ -31,6 +31,11 @@ constexpr int kSghRow = 16;        // floats a pose in kernel 1's output
 constexpr int kMaxPoses = 128;     // poses a launch of kernels 1 and 2
 constexpr int kNnThreads = 128;    // threads a block of kernel 3
 constexpr int kNnWarps = kNnThreads / 32;
+constexpr int kNnSources = 2;      // sources a thread holds in registers
+constexpr int kNnTargets = 2;      // targets a thread stages from a chunk
+constexpr int kNnTile = kNnThreads * kNnSources;    // sources a block
+constexpr int kNnChunk = kNnThreads * kNnTargets;   // targets a chunk
+constexpr int kNnSeg = 32 * kNnTargets;             // targets a warp stages
 constexpr int kNnAhead = 4;        // chunks whose mask bytes are read ahead
 constexpr int kNnFinThreads = 1024;  // threads a block of its finish step
 constexpr int kNnFinWarps = kNnFinThreads / 32;
@@ -281,12 +286,13 @@ __global__ void empty_kernel() {}
 // - The operands as the callers hold them: [n, 2] and [m, 2] points as
 //   float2, the masks as bytes. No cast, stack or copy before the
 //   launch.
-// - Live pairs only. A block reads the target mask bytes of a chunk, E
-//   a thread (chunks are laid on the 16-byte grid of the mask's address,
-//   so with E >= 4 a thread's run is one aligned word and a sliced view
-//   only sends its ragged head and tail down the byte path), and each
-//   warp compacts its live targets into its own segment of shared
-//   memory by ballot and popcount. A chunk without a live target costs
+// - Live pairs only. A block reads the target mask bytes of a chunk,
+//   kNnTargets a thread and byte by byte, so a mask may start at any
+//   address (a sliced view) and end anywhere (a 16-byte read a thread
+//   would make a chunk 2048 targets, which one block then walks alone:
+//   measured four times slower on a young map), and each warp compacts
+//   its live targets into its own segment of shared memory by ballot
+//   and popcount. A chunk without a live target costs
 //   its mask bytes and nothing else; a source tile without a live
 //   source leaves at once and a warp without one skips the pair loop.
 //   The mask bytes of kNnAhead chunks are read together, so that a run
@@ -296,14 +302,14 @@ __global__ void empty_kernel() {}
 //   prefix of a registration target lands on every block. Arbitrary
 //   masks (the scattered candidate mask of the dynamic-removal pass)
 //   take the same path.
-// - Sources tiled in registers. A thread holds S sources, so one 8-byte
-//   shared-memory load (a broadcast) serves S pairs and the inner loop
-//   has no mask test. The wrapper picks S = 2 and E = 2: a real scan
-//   fills ~200 of the 2048 source slots, all in the first tile, so the
-//   time of a call is the time one thread needs for its share of the
-//   live targets, which grows with S and with the chunk; S = 4 with 512
-//   targets a chunk is 8 % faster when every slot is live and up to
-//   twice as slow on a real scan (cli/tune_nn_torch.py sweeps both).
+// - Sources tiled in registers. A thread holds kNnSources sources, so
+//   one 8-byte shared-memory load (a broadcast) serves that many pairs
+//   and the inner loop has no mask test. Two sources a thread and 256
+//   targets a chunk: a real scan fills ~200 of the 2048 source slots,
+//   all in the first tile, so the time of a call is the time one thread
+//   needs for its share of the live targets, which grows with both; 4
+//   sources and 512 targets a chunk measured 8 % faster when every slot
+//   is live and up to twice as slow on a real scan.
 // - The staged chunk is double-buffered: one barrier a chunk.
 // - The twin's NaN rule. fminf drops a NaN where the twin's minimum
 //   carries it, so the pair loop has a second form that carries it,
@@ -321,16 +327,17 @@ __global__ void empty_kernel() {}
 
 // best[s] = min(best[s], |src_s - t|^2) over the targets of one staged
 // segment. kCarryNan: a NaN distance wins and stays, as in the twin.
-template <bool kCarryNan, int S>
+template <bool kCarryNan>
 __device__ __forceinline__ void nn_pairs(const float2* __restrict__ seg,
-                                         int count, const float (&sx)[S],
-                                         const float (&sy)[S],
-                                         float (&best)[S]) {
+                                         int count,
+                                         const float (&sx)[kNnSources],
+                                         const float (&sy)[kNnSources],
+                                         float (&best)[kNnSources]) {
 #pragma unroll 4
   for (int j = 0; j < count; ++j) {
     const float2 t = seg[j];
 #pragma unroll
-    for (int s = 0; s < S; ++s) {
+    for (int s = 0; s < kNnSources; ++s) {
       const float dx = sx[s] - t.x;
       const float dy = sy[s] - t.y;
       const float d2 = dx * dx + dy * dy;
@@ -346,55 +353,30 @@ __device__ __forceinline__ bool not_finite(float v) {
   return !(fabsf(v) < INFINITY);
 }
 
-// Bit e of the result: target (v0 + e - head) is inside [0, m) and its
-// mask byte is set. v0 is a multiple of E on the mask's 16-byte grid,
-// so a run of E >= 4 bytes that lies inside is one aligned word.
-template <int E>
+// Bit e of the result: target j0 + e is inside [0, m) and its mask
+// byte is set.
 __device__ __forceinline__ unsigned live_bits(
-    const unsigned char* __restrict__ mask, int v0, int head, int m) {
-  static_assert(E == 1 || E == 2 || E == 4 || E == 8 || E == 16,
-                "mask bytes a thread");
-  const int j0 = v0 - head;
+    const unsigned char* __restrict__ mask, int j0, int m) {
   unsigned bits = 0;
-  if (E >= 4 && j0 >= 0 && j0 + E <= m) {
-    unsigned w[(E + 3) / 4];
-    if constexpr (E == 16) {
-      const uint4 q = __ldg((const uint4*)(mask + j0));
-      w[0] = q.x; w[1] = q.y; w[2] = q.z; w[3] = q.w;
-    } else if constexpr (E == 8) {
-      const uint2 q = __ldg((const uint2*)(mask + j0));
-      w[0] = q.x; w[1] = q.y;
-    } else {
-      w[0] = __ldg((const unsigned*)(mask + j0));
-    }
 #pragma unroll
-    for (int e = 0; e < E; ++e)
-      if ((w[e / 4] >> (8 * (e % 4))) & 0xffu) bits |= 1u << e;
-  } else {
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      const int j = j0 + e;
-      if (j >= 0 && j < m && __ldg(mask + j)) bits |= 1u << e;
-    }
-  }
+  for (int e = 0; e < kNnTargets; ++e)
+    if (j0 + e < m && __ldg(mask + j0 + e)) bits |= 1u << e;
   return bits;
 }
 
-// First launch. grid (B, source tiles), kNnThreads threads, S sources
-// a thread, E target mask bytes a thread and chunk. part [B, n]: the
+// First launch. grid (B, source tiles), kNnThreads threads, kNnSources
+// sources and kNnTargets targets of a chunk a thread. part [B, n]: the
 // block's minimum for each source of its tile. live [tiles, B]: the
 // live targets the block met, or -1 where the tile had no live source
 // and the block left without looking.
-template <int S, int E>
 __global__ void __launch_bounds__(kNnThreads)
 nn_kernel(const float2* __restrict__ src,
           const unsigned char* __restrict__ src_mask,
           const float2* __restrict__ tgt,
           const unsigned char* __restrict__ tgt_mask,
           float* __restrict__ part, int* __restrict__ live, int n, int m) {
-  constexpr int kChunk = kNnThreads * E;   // targets a chunk
-  constexpr int kSeg = 32 * E;             // targets a warp stages
-  __shared__ float2 s_t[2][kChunk];
+  constexpr int S = kNnSources, E = kNnTargets;
+  __shared__ float2 s_t[2][kNnChunk];
   __shared__ int s_count[2][kNnWarps];
   __shared__ int s_bad[2][kNnWarps];
   const unsigned kFull = 0xffffffffu;
@@ -426,9 +408,8 @@ nn_kernel(const float2* __restrict__ src,
   const bool warp_live = __any_sync(kFull, src_live);
   const bool warp_bad = __any_sync(kFull, src_bad);
 
-  // chunks on the 16-byte grid of the mask's address, dealt round-robin
-  const int head = (int)((size_t)tgt_mask & 15);
-  const int chunks = (head + m + kChunk - 1) / kChunk;
+  // chunks dealt round-robin: block b of B takes b, b + B, ...
+  const int chunks = (m + kNnChunk - 1) / kNnChunk;
   int met = 0;
   int buf = 0;
   // the NaN-carrying pair loop from the first chunk on that needs it:
@@ -441,22 +422,21 @@ nn_kernel(const float2* __restrict__ src,
 #pragma unroll
     for (int g = 0; g < kNnAhead; ++g) {
       const int c = c0 + g * gridDim.x;
-      ahead[g] = c < chunks ? live_bits<E>(tgt_mask,
-                                           c * kChunk + threadIdx.x * E,
-                                           head, m)
-                            : 0u;
+      ahead[g] = c < chunks
+                     ? live_bits(tgt_mask, c * kNnChunk + threadIdx.x * E, m)
+                     : 0u;
     }
 #pragma unroll
     for (int g = 0; g < kNnAhead; ++g) {
       const int c = c0 + g * gridDim.x;
       if (c >= chunks) break;
-      const int v0 = c * kChunk + threadIdx.x * E;
-      float2* seg = s_t[buf] + warp * kSeg;
+      const int j0 = c * kNnChunk + threadIdx.x * E;
+      float2* seg = s_t[buf] + warp * kNnSeg;
       float2 t[E];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
         t[e] = make_float2(0.f, 0.f);
-        if ((ahead[g] >> e) & 1u) t[e] = tgt[v0 + e - head];
+        if ((ahead[g] >> e) & 1u) t[e] = tgt[j0 + e];
       }
       int count = 0;
       bool bad = false;
@@ -487,11 +467,11 @@ nn_kernel(const float2* __restrict__ src,
       if (warp_live && total > 0) {
 #pragma unroll
         for (int w = 0; w < kNnWarps; ++w) {
-          const float2* from = s_t[buf] + w * kSeg;
+          const float2* from = s_t[buf] + w * kNnSeg;
           if (carry)
-            nn_pairs<true, S>(from, s_count[buf][w], sx, sy, best);
+            nn_pairs<true>(from, s_count[buf][w], sx, sy, best);
           else
-            nn_pairs<false, S>(from, s_count[buf][w], sx, sy, best);
+            nn_pairs<false>(from, s_count[buf][w], sx, sy, best);
         }
       }
       buf ^= 1;
@@ -714,30 +694,19 @@ int ndt_empty(void* stream) {
 }
 
 // Kernel 3, both launches on `stream`. part [blocks, n] and live
-// [tiles, blocks] are scratch, tiles = ceil(n / (128 * sources)).
+// [tiles, blocks] are scratch, tiles = ceil(n / ndt_nn_tile()).
 // d2_out [n] or, with fit_out [1] not null, the fitness mean. blocks:
 // the blocks that share the target chunks of one source tile.
-// (sources, mask_bytes) a thread: (2, 2), what the wrapper asks for, 256
-// targets a chunk; (4, 4) and (1, 2) are built for the tuning script to
-// measure it against.
 int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
            const unsigned char* tgt_mask, float* part, int* live,
            float* d2_out, float* fit_out, int n, int m, int blocks,
-           int sources, int mask_bytes, void* stream) {
+           void* stream) {
   if (n < 1 || m < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const int tile = kNnThreads * sources;
-  const int tiles = (n + tile - 1) / tile;
-  const dim3 grid(blocks, tiles);
-  const float2* s2 = (const float2*)src;
-  const float2* t2 = (const float2*)tgt;
-#define NDT_NN_CASE(S, E)                                                  \
-  if (sources == S && mask_bytes == E)                                     \
-    nn_kernel<S, E><<<grid, kNnThreads, 0, st>>>(s2, src_mask, t2,         \
-                                                 tgt_mask, part, live, n, m)
-  NDT_NN_CASE(2, 2); else NDT_NN_CASE(4, 4); else NDT_NN_CASE(1, 2);
-  else return (int)cudaErrorInvalidValue;
-#undef NDT_NN_CASE
+  const int tiles = (n + kNnTile - 1) / kNnTile;
+  nn_kernel<<<dim3(blocks, tiles), kNnThreads, 0, st>>>(
+      (const float2*)src, src_mask, (const float2*)tgt, tgt_mask, part, live,
+      n, m);
   if (fit_out != nullptr) {
     cudaLaunchAttribute cluster;
     cluster.id = cudaLaunchAttributeClusterDimension;
@@ -765,6 +734,7 @@ int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
 
 int ndt_window_threads() { return kWinThreads; }
 int ndt_max_poses() { return kMaxPoses; }
-int ndt_nn_threads() { return kNnThreads; }
+int ndt_nn_tile() { return kNnTile; }
+int ndt_nn_chunk() { return kNnChunk; }
 
 }  // extern "C"

@@ -37,10 +37,10 @@ min a pair, no FMA, against SMs x 128 lanes a clock). The TPU kernel
 walks every (source, target) slot as a dense block. Here the kernel
 reads the operands as the callers hold them (`[N,2]` and `[M,2]`
 points, bool masks at any byte offset), stages only live targets
-(chunks of 256 dealt round-robin to the blocks of a source tile, each
-warp compacting its live ones into shared memory by ballot), holds
-`NN_SOURCES` sources a thread in registers so that one shared-memory
-load serves that many pairs, and carries a NaN as the twin's minimum
+(chunks of `NN_CHUNK` dealt round-robin to the blocks of a source tile,
+each warp compacting its live ones into shared memory by ballot), holds
+two sources a thread in registers so that one shared-memory load
+serves two pairs, and carries a NaN as the twin's minimum
 does. A second launch takes the minimum over the block partials,
 clamps, applies the source mask and, for `fitness_score`, sums the
 valid sources in a fixed order across one cluster of 8 blocks. Both
@@ -86,9 +86,8 @@ MAX_POSES = 128      # kMaxPoses in the source
 WINDOW_THREADS = 128  # kWinThreads in the source
 SGH_VALUES = 12      # kSghValues: sums a block writes for one pose
 SGH_ROW = 16         # kSghRow: E, matched, grad[3], hess[3,3], 2 pad
-NN_THREADS = 128     # kNnThreads in the source
-NN_SOURCES = 2       # sources a thread of kernel 3 holds
-NN_MASK_BYTES = 2    # target mask bytes a thread reads a chunk
+NN_TILE = 256        # kNnTile: sources a block of kernel 3 holds
+NN_CHUNK = 256       # kNnChunk: targets a block stages at a time
 NN_WAVES = 16        # blocks of kernel 3 an SM, over all source tiles
 
 _lib: Optional[ctypes.CDLL] = None
@@ -138,17 +137,17 @@ def _load() -> ctypes.CDLL:
         lib.ndt_sgh.argtypes = window + [f, f, p]
         lib.ndt_score_many.argtypes = window + [p]
         lib.ndt_features.argtypes = [p, p, p, p, i, i, f, p]
-        lib.ndt_nn.argtypes = [p] * 8 + [i] * 5 + [p]
+        lib.ndt_nn.argtypes = [p] * 8 + [i] * 3 + [p]
         lib.ndt_empty.argtypes = [p]
         for fn in (lib.ndt_sgh, lib.ndt_score_many, lib.ndt_features,
                    lib.ndt_nn, lib.ndt_empty):
             fn.restype = i
         sizes = []
         for fn in (lib.ndt_window_threads, lib.ndt_max_poses,
-                   lib.ndt_nn_threads):
+                   lib.ndt_nn_tile, lib.ndt_nn_chunk):
             fn.restype, fn.argtypes = i, []
             sizes.append(fn())
-        if sizes != [WINDOW_THREADS, MAX_POSES, NN_THREADS]:
+        if sizes != [WINDOW_THREADS, MAX_POSES, NN_TILE, NN_CHUNK]:
             raise RuntimeError("kernel library and wrapper disagree on "
                                "a block size or the pose limit")
         _lib = lib
@@ -288,29 +287,24 @@ def empty_launch(device: torch.device):
 _sm_count: dict = {}
 
 
-def _nn_blocks(device: torch.device, tiles: int, m: int,
-               mask_bytes: int) -> int:
+def _nn_blocks(device: torch.device, tiles: int, m: int) -> int:
     """Blocks that share the target chunks of one source tile: NN_WAVES
-    blocks an SM over all tiles, and no more than there are chunks (the
-    chunks lie on the 16-byte grid of the mask's address, so a view may
-    need one more than ceil(m / chunk))."""
+    blocks an SM over all tiles, and no more than there are chunks."""
     if device not in _sm_count:
         _sm_count[device] = torch.cuda.get_device_properties(
             device).multi_processor_count
-    chunks = -(-(m + 15) // (NN_THREADS * mask_bytes))
+    chunks = -(-m // NN_CHUNK)
     return max(1, min(chunks, -(-NN_WAVES * _sm_count[device] // tiles)))
 
 
-def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness: bool,
-               blocks: Optional[int] = None, sources: int = NN_SOURCES,
-               mask_bytes: int = NN_MASK_BYTES) -> torch.Tensor:
+def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask,
+               fitness: bool) -> torch.Tensor:
     """Check the operands, allocate the output and the scratch, launch
     `nn_kernel` and `nn_finish_kernel`; returns d2 [N] or the fitness
     scalar. N, M >= 1."""
     n, m, device = src_xy.shape[0], tgt_xy.shape[0], src_xy.device
-    tiles = -(-n // (NN_THREADS * sources))
-    if blocks is None:
-        blocks = _nn_blocks(device, tiles, m, mask_bytes)
+    tiles = -(-n // NN_TILE)
+    blocks = _nn_blocks(device, tiles, m)
     part = torch.empty((blocks, n), dtype=torch.float32, device=device)
     live = torch.empty((tiles, blocks), dtype=torch.int32, device=device)
     out = torch.empty(() if fitness else (n,), dtype=torch.float32,
@@ -321,12 +315,12 @@ def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness: bool,
         part.data_ptr(), live.data_ptr(),
         None if fitness else out.data_ptr(),
         out.data_ptr() if fitness else None,
-        n, m, int(blocks), int(sources), int(mask_bytes), _stream(src_xy),
+        n, m, blocks, _stream(src_xy),
     ), "nn")
     return out
 
 
-def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask, **tuning):
+def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask):
     """Per-source squared distance to the nearest valid target ([N];
     1e12 where the source is masked or no target is valid; NaN where a
     valid source or target is NaN, as the twin gives it).
@@ -334,19 +328,18 @@ def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask, **tuning):
     CUDA: `nn_kernel` over (blocks x source tiles), then
     `nn_finish_kernel`: the minimum over the block partials, the clamp
     at 0 and the source mask. Two launches, no tensor operation; equal
-    to the twin bit for bit. `tuning` (`blocks`, `sources`, `mask_bytes`)
-    is for cli/tune_nn_torch.py; callers leave it out."""
+    to the twin bit for bit."""
     if not _route(src_xy):
         return _nn_plain(src_xy, src_mask, tgt_xy, tgt_mask)
     if src_xy.shape[0] == 0 or tgt_xy.shape[0] == 0:
         return torch.full((src_xy.shape[0],), BIG, dtype=torch.float32,
                           device=src_xy.device)
-    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, False, **tuning)
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, False)
     nn_sq_dists.launches += 1
     return out
 
 
-def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask, **tuning):
+def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask):
     """Mean over the valid sources of `nn_sq_dists` (a scalar; 1e12
     with no valid source or no valid target).
 
@@ -357,7 +350,7 @@ def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask, **tuning):
         return _fitness_plain(src_xy, src_mask, tgt_xy, tgt_mask)
     if src_xy.shape[0] == 0 or tgt_xy.shape[0] == 0:
         return torch.full((), BIG, dtype=torch.float32, device=src_xy.device)
-    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, True, **tuning)
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, True)
     fitness_score.launches += 1
     return out
 

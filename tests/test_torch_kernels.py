@@ -198,7 +198,7 @@ def test_nn_equals_twin_bit_for_bit(cuda, m, n, masks):
 @pytest.mark.parametrize("offset", [1, 2, 3, 7, 15, 16, 17])
 def test_nn_takes_mask_views_off_the_16_byte_grid(cuda, offset):
     """A sliced mask such as `a.mask[:capacity]` or `mask[k:]` starts
-    anywhere; its ragged head and tail take the kernel's scalar path."""
+    anywhere and ends anywhere: the kernel reads it byte by byte."""
     src, sm, tgt, tm = _nn_inputs(cuda, 300, 5000 + 33, "scattered", seed=9)
     end = 5000 + offset
     _assert_nn_equals_twin(src, sm, tgt[offset:end], tm[offset:end])

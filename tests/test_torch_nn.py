@@ -3,8 +3,8 @@ kernels.nn_sq_dists, kernels.fitness_score, mapping.dynamic) on the CPU.
 
 Three things are held here:
 - a plain-torch model of the CUDA kernel's scheme, written out below
-  (target chunks on the 16-byte grid of the mask's address, dealt
-  round-robin to the blocks of a source tile; each warp compacting its
+  (target chunks dealt round-robin to the blocks of a source tile;
+  each warp compacting its
   live targets; a tile without a live source leaving at once; block
   partials met by a finish step that reads only live sources), equals
   the twin `fitness.nn_sq_dists` bit for bit: every pair takes the same
@@ -39,7 +39,7 @@ from ndt_slam_tpu_torch.ndt.fitness import (
 
 torch.set_num_threads(2)
 
-THREADS = kernels.NN_THREADS
+THREADS = 128      # threads a block of the kernel
 BIG32 = float(np.float32(BIG))
 
 
@@ -48,12 +48,11 @@ def _nan_min(a, b):
     return torch.where((b < a) | torch.isnan(b), b, a)
 
 
-def _model_pairs(src, sm, tgt, tm, blocks, sources, mask_bytes, head):
+def _model_pairs(src, sm, tgt, tm, blocks, tile, chunk):
     """First launch: part [blocks, n] (NaN where the kernel writes
     nothing) and live [tiles, blocks]."""
     n, m = src.shape[0], tgt.shape[0]
-    tile, chunk = THREADS * sources, THREADS * mask_bytes
-    tiles, chunks = -(-n // tile), -(-(head + m) // chunk)
+    tiles, chunks = -(-n // tile), -(-m // chunk)
     part = torch.full((blocks, n), float("nan"))
     live = torch.zeros((tiles, blocks), dtype=torch.int32)
     for ti in range(tiles):
@@ -66,12 +65,13 @@ def _model_pairs(src, sm, tgt, tm, blocks, sources, mask_bytes, head):
             best = torch.full((rows.stop - rows.start,), BIG)
             met = 0
             for c in range(b, chunks, blocks):
-                # thread t reads mask bytes v0 .. v0 + E - 1; its warp
-                # stages the live ones element-major, then by lane
-                v = c * chunk + torch.arange(chunk).reshape(
-                    THREADS // 32, 32, mask_bytes)
-                j = v.permute(0, 2, 1).reshape(-1) - head
-                j = j[(j >= 0) & (j < m)]
+                # a thread reads chunk / THREADS neighbouring mask
+                # bytes; its warp stages the live ones element-major,
+                # then by lane
+                j = c * chunk + torch.arange(chunk).reshape(
+                    THREADS // 32, 32, chunk // THREADS)
+                j = j.permute(0, 2, 1).reshape(-1)
+                j = j[j < m]
                 j = j[tm[j]]
                 met += j.numel()
                 if j.numel() == 0:
@@ -105,9 +105,9 @@ def _model_finish(part, live, sm):
     return d2, (fit if count > 0 and have_target else torch.tensor(BIG))
 
 
-def _model(src, sm, tgt, tm, blocks=3, sources=2, mask_bytes=2, head=0):
-    part, live = _model_pairs(src, sm, tgt, tm, blocks, sources, mask_bytes,
-                              head)
+def _model(src, sm, tgt, tm, blocks=3):
+    part, live = _model_pairs(src, sm, tgt, tm, blocks, kernels.NN_TILE,
+                              kernels.NN_CHUNK)
     return _model_finish(part, live, sm)
 
 
@@ -131,26 +131,26 @@ def _same(a, b):
                  | (torch.isnan(a) & torch.isnan(b))).all())
 
 
-# case: (n, m, live sources, target mask, blocks, sources, mask bytes, head)
+# case: (n, m, live sources, target mask, blocks)
 MODEL_CASES = {
-    "prefix": (300, 1500, 200, "prefix", 3, 2, 2, 0),
-    "scattered": (300, 1500, 200, "scattered", 3, 2, 2, 0),
-    "ragged_head_and_tail": (130, 1000, 130, "scattered", 2, 1, 4, 13),
-    "four_sources_a_thread": (600, 700, 520, "scattered", 2, 4, 1, 5),
-    "dead_source_tile": (600, 500, 100, "all", 2, 2, 2, 0),
-    "more_blocks_than_chunks": (100, 300, 100, "all", 5, 2, 2, 0),
-    "no_target": (100, 600, 80, "none", 2, 2, 2, 3),
-    "no_source": (100, 600, 0, "all", 2, 2, 2, 0),
-    "one_empty_slot": (100, 1, 60, "none", 1, 2, 2, 0),
-    "one_live_slot": (100, 1, 60, "all", 1, 2, 2, 15),
+    "prefix": (300, 1500, 200, "prefix", 3),
+    "scattered": (300, 1500, 200, "scattered", 3),
+    "ragged_tail": (130, 1000, 130, "scattered", 2),
+    "three_source_tiles": (600, 700, 520, "scattered", 2),
+    "dead_source_tile": (600, 500, 100, "all", 2),
+    "more_blocks_than_chunks": (100, 300, 100, "all", 5),
+    "no_target": (100, 600, 80, "none", 2),
+    "no_source": (100, 600, 0, "all", 2),
+    "one_empty_slot": (100, 1, 60, "none", 1),
+    "one_live_slot": (100, 1, 60, "all", 1),
 }
 
 
 @pytest.mark.parametrize("case", sorted(MODEL_CASES))
 def test_kernel_scheme_equals_twin_bit_for_bit(case):
-    n, m, n_live, masks, blocks, sources, mask_bytes, head = MODEL_CASES[case]
+    n, m, n_live, masks, blocks = MODEL_CASES[case]
     src, sm, tgt, tm = _inputs(n, m, n_live, masks, seed=len(case))
-    d2, fit = _model(src, sm, tgt, tm, blocks, sources, mask_bytes, head)
+    d2, fit = _model(src, sm, tgt, tm, blocks)
     want = nn_sq_dists(src, sm, tgt, tm)
     assert _same(d2, want)
     np.testing.assert_allclose(
