@@ -22,12 +22,22 @@ Phases, one line each (any failure exits non-zero):
      bound from this run's inputs, kernel 3 again at full load with its
      operations bound, the time of an empty launch, and one library call
      beside kernel 3;
-  4. main path: `run_slam` over all 500 frames of
-     tests/data/office_loop.clf with the default SlamConfig on the card;
-     ATE against the ground truth, accept rate, launch counts, outputs;
-     then the first 15 frames at the small capacities on the card and
-     on the CPU twins, within 0.05 m and 0.3 deg of each other;
-  5. determinism: frames 0-29 twice, poses bitwise equal.
+  4. main paths: `run_slam` over tests/data/office_loop.clf at the
+     default capacities on the card, launch counts set to 0 before each:
+     [main] the first 150 frames with the grid rebuilt in full every
+     frame, [main-inc] all 500 frames against the incremental moment
+     lattice; ATE against the ground truth, accept rate, launch counts,
+     outputs, no window escaped the lattice; [lattice] at frames 40 and
+     300 the window grid cut from the lattice against from-scratch
+     builds over the same target buffer; [fetch] the device-to-host
+     copies a frame on both paths; [escape] 30 frames with a lattice no
+     wider than the window; [reference] the first 15 frames at the small
+     capacities on the card and on the CPU twins, lattice on, within
+     0.05 m and 0.3 deg of each other;
+  5. [resume] frames 0-29 with a checkpoint after frame 14 and the run
+     continued from the loaded file, and [determinism] frames 0-29
+     twice, lattice on: poses bitwise equal, the loaded lattice bitwise
+     equal to the saved one.
 The last line is the JSON result; the kernels' JSON line and the
 card's name and power limit come just before it.
 """
@@ -505,6 +515,157 @@ def _scenes(device, cfg, frames):
     return {"synthetic": syn, "office_loop": real}
 
 
+def _run_main_path(tag, frames, gt, cfg, device):
+    """One whole run through `run_slam` with the launch counts set to 0
+    just before it and read just after; checks the outputs, the ATE and
+    the accept rate. Returns (front end, launch counts)."""
+    import torch
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.pipeline.runner import run_slam
+
+    kernels.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as out:
+        fe = run_slam(frames, cfg, device, out_dir=out)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        written = sorted(os.listdir(out))
+        for f in ("poses.txt", "poses_full.txt", "map.pcd",
+                  "submap_000.pcd"):
+            _require(f in written and os.path.getsize(os.path.join(out, f)),
+                     f"{tag}: output {f} written")
+    n = len(fe.pose_history)
+    _require(n == min(len(frames), cfg.end_frame),
+             f"{tag}: {n} of {len(frames)} frames run")
+    poses = fe.get_poses()
+    _require(np.isfinite(poses).all(), f"{tag}: finite poses")
+    ate = ate_rmse(poses, gt[:n])
+    accept = float(np.mean([bool(m.get("successful")) for m in fe.metrics]))
+    loop_s = fe.metrics[-1]["wall_s"]
+    iters = np.mean([m.get("iterations", 0) for m in fe.metrics[1:]])
+    split = {k: round(v / n, 3) for k, v in sorted(
+        fe.timer.ms.items(), key=lambda kv: -kv[1])}
+    print(f"[{tag}] {n} frames in {loop_s:.2f} s = {n / loop_s:.2f} frames/s; "
+          f"incremental grid {fe.incremental_grid}, "
+          f"{fe.n_grid_fallbacks} fallbacks; ATE {ate:.4f} m; accept "
+          f"{accept:.4f}; mean iterations {iters:.2f}; "
+          f"{len(fe.pcmap.submaps)} submaps; launches {counts}; outputs "
+          f"{len(written)} files", flush=True)
+    print(f"[{tag}] stage ms a frame (card timeline): {json.dumps(split)}")
+    _require(ate < ATE_BOUND, f"{tag}: ATE {ate} < {ATE_BOUND} m")
+    _require(accept >= ACCEPT_BOUND,
+             f"{tag}: accept rate {accept} >= {ACCEPT_BOUND}")
+    for name, c in counts.items():
+        _require(c > 0, f"{tag}: kernel {name} launched on the main path")
+    return fe, counts
+
+
+def _check_lattice(cfg, frames, device, at=(40, 300)):
+    """Before each frame of `at`, in a run with the lattice on: the
+    window grid cut from the running lattice (plus the newest scan's
+    moments, under the overflow rule) against two from-scratch builds
+    over the same target buffer. Against the build keyed by absolute
+    cell index (`moments_abs` of the whole target) the bar is strict:
+    identical `valid`, `mean` to atol 1e-4, `inv_cov` to atol 2e-2 + rtol
+    2e-3 of the cell's largest entry (entry by entry the small
+    off-diagonals of a thin wall's cell, whose diagonal is 1e3-1e5, fail
+    that bar on f32 summation order alone; they are counted). Against the window-relative build (`grid_moments`, what
+    `build_grid` runs) a point within an ulp of a cell edge may sit in
+    the neighbouring cell, so the cells that differ are counted and may
+    be at most 1 % of the valid ones."""
+    import torch
+    from ndt_slam_tpu_torch.core import pose2
+    from ndt_slam_tpu_torch.ndt import grid as G
+    from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
+
+    nx, ny, res = cfg.grid_cells_x, cfg.grid_cells_y, cfg.ndt_resolution
+    B, min_pts = cfg.resolved_grid_mom_cells, cfg.ndt_min_points_per_cell
+    fe = FrontEnd(cfg, device)
+    _require(fe.incremental_grid, "[lattice] runs with the lattice on")
+    for i, fr in enumerate(frames[:max(at) + 1]):
+        if i in at:
+            odo = torch.tensor(fr.odo_pose, device=device)
+            pred = pose2.cal_pred_pose(
+                pose2.cal_motion(odo, fe._prev_odo_dev), fe._last_pose_dev)
+            tgt = fe.pcmap.registration_target()
+            mom, anchor = fe.pcmap.mom_state()
+            newest = fe.pcmap.newest_raw()
+            fa = G.lattice_anchor(pred[:2], nx, res)
+            rank = torch.cumsum(newest.mask.to(torch.int32), dim=0) - 1
+            keep = newest.mask & (rank < cfg.max_submap_points
+                                  - fe.pcmap.submaps[-1].proc_count)
+            extra = G.moments_abs(newest.xy, keep, fa, nx, ny, res)
+            g, ok = G.window_grid_from_lattice(
+                mom, anchor, B, B, fa, nx, ny, res, extra=extra,
+                min_pts=min_pts)
+            _require(bool(ok), f"[lattice] frame {i}: window in range")
+            m_abs = G.moments_abs(tgt.xy, tgt.mask, fa, nx, ny, res)
+            strict = G._finalize_abs(tuple(m_abs[:, k] for k in range(6)),
+                                     g.origin, fa, nx, ny, res, min_pts, 0.01)
+            rel = G.grid_finalize(
+                G.grid_moments(tgt.xy, tgt.mask, g.origin, nx, ny, res),
+                g.origin, nx, ny, res, min_pts)
+            _require(torch.equal(g.valid, strict.valid),
+                     f"[lattice] frame {i}: valid cells identical")
+            v = g.valid
+            np.testing.assert_allclose(g.mean[v].cpu().numpy(),
+                                       strict.mean[v].cpu().numpy(), atol=1e-4)
+            # inv_cov against the cell's own scale: a thin wall's cell
+            # has entries of 1e3-1e5 beside off-diagonals of a few units
+            d_cov = (g.inv_cov[v] - strict.inv_cov[v]).abs().amax(dim=(1, 2))
+            scale = strict.inv_cov[v].abs().amax(dim=(1, 2))
+            worst = float((d_cov / (2e-2 + 2e-3 * scale)).max())
+            _require(worst <= 1.0, f"[lattice] frame {i}: inv_cov within "
+                     f"atol 2e-2 + rtol 2e-3 of each cell's largest entry "
+                     f"(worst {worst:.3g} of that bound)")
+            elementwise = int((
+                (g.inv_cov[v] - strict.inv_cov[v]).abs()
+                > 2e-2 + 2e-3 * strict.inv_cov[v].abs()).sum())
+            both = v & rel.valid
+            differ = int((v != rel.valid).sum()) + int((
+                ((g.mean - rel.mean).abs().amax(dim=1) > 1e-4) & both).sum())
+            n_valid = int(v.sum())
+            print(f"[lattice] frame {i}: {n_valid} valid cells, "
+                  f"{int(tgt.mask.sum())} target points, "
+                  f"{int(mom[:, 0].sum())} in the lattice + {int(keep.sum())}"
+                  f" fresh; equal to the from-scratch build by absolute "
+                  f"cell (valid identical, mean max "
+                  f"{(g.mean[v] - strict.mean[v]).abs().max().item():.3g}, "
+                  f"inv_cov at most {worst:.3g} of atol 2e-2 + rtol 2e-3 of "
+                  f"the cell's largest entry, {elementwise} of "
+                  f"{4 * n_valid} entries beyond that bar taken entry by "
+                  f"entry); {differ} cells differ from the window-relative "
+                  f"build", flush=True)
+            _require(n_valid > 20 and differ <= 0.01 * n_valid,
+                     f"[lattice] frame {i}: {differ} of {n_valid} cells "
+                     f"differ from the window-relative build")
+        fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+    _require(fe.n_grid_fallbacks == 0, "[lattice] no window escaped")
+
+
+def _d2h_copies_per_frame(cfg, frames, device, warm=40, window=20):
+    """Device-to-host copies a frame over `window` steady frames, from a
+    torch.profiler trace."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
+
+    fe = FrontEnd(cfg, device)
+    for fr in frames[:warm]:
+        fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for fr in frames[warm:warm + window]:
+            fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    _require(dev, "the profiler recorded device events")
+    d2h = sum("memcpy dtoh" in e.name.lower() for e in dev)
+    return d2h / window, len(dev) / window, fe.n_grid_fallbacks
+
+
 def main() -> int:
     import torch
 
@@ -517,9 +678,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     sys.path.insert(0, ROOT)
     from ndt_slam_tpu_torch.config import SlamConfig
+    from ndt_slam_tpu_torch.io import native
     from ndt_slam_tpu_torch.io.carmen import read_carmen_gt, read_carmen_log
-    from ndt_slam_tpu_torch.metrics import ate_rmse
     from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.pipeline.checkpoint import load_checkpoint
+    from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
     from ndt_slam_tpu_torch.pipeline.runner import run_slam
 
     smi = _nvidia_smi()
@@ -540,68 +703,101 @@ def main() -> int:
 
     # 3. kernels vs twins at the main path's shapes
     cfg = SlamConfig()
+    inc = cfg.replace(ndt_incremental_grid=1)
+    full = cfg.replace(ndt_incremental_grid=0)
     frames = read_carmen_log(LOG)
     gt = read_carmen_gt(GT)
-    rows = _check_kernels(cfg, _scenes(device, cfg, frames))
+    _require(len(frames) == 500, "office_loop has 500 frames")
+    print(f"[host] csrc/libndtslam.so: {native.status()}; the front end "
+          f"resamples with the {FrontEnd(cfg, device).resampler} resampler; "
+          f"ndt_incremental_grid = -1 resolves to "
+          f"{cfg.resolved_ndt_incremental_grid('cuda')} on cuda", flush=True)
+    rows = _check_kernels(cfg, _scenes(device, full, frames))
     event_us, device_us = _empty_launch_us()
     print(f"[launch] an empty kernel: {event_us:.2f} us from before its "
           f"launch to its end (CUDA events, median of 50), {device_us:.2f} "
           f"us of device time (profiler)", flush=True)
 
-    # 4. the main path: 500 frames of office_loop, default config
-    kernels.reset_launch_counts()
-    with tempfile.TemporaryDirectory() as out:
-        fe = run_slam(frames, cfg, device, out_dir=out)
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
-        written = sorted(os.listdir(out))
-        for f in ("poses.txt", "poses_full.txt", "map.pcd",
-                  "submap_000.pcd"):
-            _require(f in written and os.path.getsize(os.path.join(out, f)),
-                     f"output {f} written")
-    n = len(fe.pose_history)
-    _require(n == len(frames) == 500, f"{n} of {len(frames)} frames run")
-    poses = fe.get_poses()
-    _require(np.isfinite(poses).all(), "finite poses")
-    ate = ate_rmse(poses, gt[:n])
-    accept = float(np.mean([bool(m.get("successful")) for m in fe.metrics]))
-    loop_s = fe.metrics[-1]["wall_s"]
-    iters = np.mean([m.get("iterations", 0) for m in fe.metrics[1:]])
-    split = {k: round(v, 1) for k, v in sorted(
-        fe.timer.ms.items(), key=lambda kv: -kv[1])}
-    print(f"[main] {n} frames in {loop_s:.2f} s = {n / loop_s:.2f} frames/s; "
-          f"ATE {ate:.4f} m; accept {accept:.4f}; mean iterations "
-          f"{iters:.2f}; {len(fe.pcmap.submaps)} submaps; "
-          f"launches {counts}; outputs {len(written)} files", flush=True)
-    print(f"[main] stage ms (card timeline, summed): {json.dumps(split)}")
-    _require(ate < ATE_BOUND, f"ATE {ate} < {ATE_BOUND} m")
-    _require(accept >= ACCEPT_BOUND, f"accept rate {accept} >= {ACCEPT_BOUND}")
-    for name, c in counts.items():
-        _require(c > 0, f"kernel {name} launched on the main path")
+    # 4. the main paths at the default capacities: the full rebuild (the
+    # earlier path, cut to 150 frames) and the incremental lattice
+    _, counts_full = _run_main_path("main", frames,  gt,
+                                    full.replace(end_frame=150), device)
+    fe, counts = _run_main_path("main-inc", frames, gt, inc, device)
+    _require(fe.incremental_grid and fe.n_grid_fallbacks == 0,
+             "[main-inc] ran on the lattice and no window escaped it")
     for row in rows:
         row["launches"] = counts[row["name"]]
+        row["launches_full_rebuild_150_frames"] = counts_full[row["name"]]
+
+    _check_lattice(inc, frames, device)
+
+    # one fetch a frame on either path: the lattice path adds no
+    # device-to-host copy (the solver's done-flag polls are the others)
+    d2h_inc, ops_inc, esc = _d2h_copies_per_frame(inc, frames, device)
+    d2h_full, ops_full, _ = _d2h_copies_per_frame(full, frames, device)
+    print(f"[fetch] frames 40-59: {d2h_inc:g} device-to-host copies and "
+          f"{ops_inc:g} device operations a frame on the lattice path, "
+          f"{d2h_full:g} and {ops_full:g} with the full rebuild", flush=True)
+    _require(esc == 0 and d2h_inc <= d2h_full,
+             "the lattice path adds no device-to-host copy to the frame")
+
+    # an escape: a lattice no wider than the window
+    off30 = run_slam(frames, full.replace(end_frame=30), device).get_poses()
+    fe_esc = run_slam(frames, inc.replace(end_frame=30, grid_mom_cells=192),
+                      device)
+    esc30 = fe_esc.get_poses()
+    d_esc = float(np.hypot(esc30[:, 0] - off30[:, 0],
+                           esc30[:, 1] - off30[:, 1]).max())
+    print(f"[escape] 30 frames, grid_mom_cells = 192: "
+          f"{fe_esc.n_grid_fallbacks} frames redone through the full "
+          f"rebuild, at most {d_esc:.3g} m from the full-rebuild run",
+          flush=True)
+    _require(fe_esc.n_grid_fallbacks > 0 and d_esc <= 0.02,
+             "escaped windows fall back to the full rebuild")
 
     # reference on a small input: the card against the CPU twins (which
-    # tests/test_torch_slice.py holds to the JAX package), first 15
-    # frames at the small capacities, within the f32-noise bounds
-    small = SlamConfig.small(end_frame=15)
+    # tests/test_torch_lattice.py holds to the JAX package), first 15
+    # frames at the small capacities, lattice on, within the f32-noise
+    # bounds
+    small = SlamConfig.small(end_frame=15, ndt_incremental_grid=1)
     on_card = run_slam(frames, small, device).get_poses()
     on_cpu = run_slam(frames, small, torch.device("cpu")).get_poses()
     dxy = float(np.abs(on_card[:, :2] - on_cpu[:, :2]).max())
     dth = float(np.abs((on_card[:, 2] - on_cpu[:, 2] + 180.0) % 360.0
                        - 180.0).max())
-    print(f"[reference] 15 frames, small config, card vs CPU twins: max "
-          f"{dxy:.3g} m, {dth:.3g} deg", flush=True)
+    print(f"[reference] 15 frames, small config, lattice on, card vs CPU "
+          f"twins: max {dxy:.3g} m, {dth:.3g} deg", flush=True)
     _require(on_card.shape == (15, 3) and dxy <= 0.05 and dth <= 0.3,
              "card and CPU twins agree on the first 15 frames")
 
-    # 5. determinism: frames 0-29 twice, bitwise equal poses
-    short = cfg.replace(end_frame=30)
+    # 5. determinism and resume on the lattice path: frames 0-29 twice,
+    # then again with a checkpoint after frame 14 and the run continued
+    # from the loaded file; bitwise equal poses
+    short = inc.replace(end_frame=30)
     a = run_slam(frames, short, device).get_poses()
     b = run_slam(frames, short, device).get_poses()
     _require(a.shape == (30, 3) and a.tobytes() == b.tobytes(),
              "a rerun of frames 0-29 gives bitwise equal poses")
-    print("[determinism] frames 0-29 twice: poses bitwise equal", flush=True)
+    print("[determinism] frames 0-29 twice, lattice on: poses bitwise equal",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "state.npz")
+        fe15 = run_slam(frames, inc.replace(end_frame=15), device,
+                        checkpoint_path=ckpt)
+        loaded = load_checkpoint(ckpt, device, inc.replace(end_frame=15))
+        _require(loaded.cnt == 15 and loaded.pcmap._mom_valid
+                 and torch.equal(loaded.pcmap._mom, fe15.pcmap._mom)
+                 and torch.equal(loaded.last_cov, fe15.last_cov),
+                 "the loaded lattice and covariance equal the saved bits")
+        size = os.path.getsize(ckpt)
+        c = run_slam(frames, short, device, checkpoint_path=ckpt,
+                     resume=True, checkpoint_save=False).get_poses()
+    _require(c.shape == (30, 3) and c.tobytes() == a.tobytes(),
+             "a run resumed from the checkpoint of frame 14 gives the "
+             "uninterrupted run's poses bit for bit")
+    print(f"[resume] checkpoint after frame 14 ({size} bytes), frames 15-29 "
+          f"from the loaded file: poses and lattice bitwise equal",
+          flush=True)
 
     print(json.dumps({"kernels": rows}))
     print(_nvidia_smi())

@@ -7,6 +7,7 @@ share, and the device time of this repository's kernels by name.
   python cli/profile_torch.py                      # this checkout
   python cli/profile_torch.py --root build/parent  # another checkout
   python cli/profile_torch.py --compare build/parent --pairs 10
+  python cli/profile_torch.py --incremental-grid --pairs 10
 
 --root names the checkout whose `ndt_slam_tpu_torch` is profiled (the
 log is always read from this one). --compare measures two checkouts in
@@ -15,6 +16,9 @@ alike: `--pairs` pairs of whole runs, the side that goes first
 alternating, and prints each run's frames/s and stage split, the
 medians, and how many pairs the --root side won. Unpack the other
 commit with `git archive` into a directory that .gitignore lists.
+--incremental-grid measures the two grid paths of the --root checkout
+the same way (ndt_incremental_grid = 1 against 0, whole runs in turns),
+and then profiles the steady window of each.
 
 The busy share is the summed duration of the device events of the
 window (one stream, so they do not overlap) over the wall time of the
@@ -73,28 +77,32 @@ def _activate(tree: dict):
     sys.modules.update(tree)
 
 
-def _compare(trees: dict, pairs: int, frames, card: str) -> dict:
-    """Whole runs of the two trees in turns; the first of each pair
-    alternates."""
+def _compare(sides: dict, pairs: int, frames, card: str) -> dict:
+    """Whole runs of two sides in turns; the first of each pair
+    alternates. `sides` maps a name to (modules of a checkout, SlamConfig
+    overrides)."""
     import torch
 
     device = torch.device("cuda", 0)
-    names = list(trees)
+    names = list(sides)
     runs = {name: [] for name in names}
+    keys = ("frames_per_s", "grid_ms", "align_ms", "fuse_ms", "fitness_ms",
+            "map_ms", "host_ms", "other_ms")
 
     def one(name):
-        _activate(trees[name])
-        mods = trees[name]
-        cfg = mods["ndt_slam_tpu_torch.config"].SlamConfig()
+        mods, overrides = sides[name]
+        _activate(mods)
+        cfg = mods["ndt_slam_tpu_torch.config"].SlamConfig().replace(
+            **overrides)
         fe = mods["ndt_slam_tpu_torch.pipeline.runner"].run_slam(
             frames, cfg, device)
         torch.cuda.synchronize()
         n = len(fe.pose_history)
         ms = {k: v / n for k, v in fe.timer.ms.items()}
-        return {"frames_per_s": n / fe.metrics[-1]["wall_s"],
-                "align_ms": ms["align"], "fuse_ms": ms["fuse"],
-                "fitness_ms": ms["fitness"], "map_ms": ms["map"],
-                "other_ms": sum(ms.values()) - ms["align"]}
+        out = {k: ms[k[:-3]] for k in keys[1:-1]}
+        out["frames_per_s"] = n / fe.metrics[-1]["wall_s"]
+        out["other_ms"] = sum(ms.values()) - ms["align"]
+        return out
 
     for name in names:                                   # warm-up, build
         one(name)
@@ -104,8 +112,7 @@ def _compare(trees: dict, pairs: int, frames, card: str) -> dict:
             runs[name].append(one(name))
     a, b = names
     out = {"card": card, "pairs": pairs, "runs": runs}
-    for key in ("frames_per_s", "align_ms", "fuse_ms", "fitness_ms",
-                "map_ms", "other_ms"):
+    for key in keys:
         out["median_" + key] = {
             name: statistics.median(r[key] for r in runs[name])
             for name in names}
@@ -115,57 +122,24 @@ def _compare(trees: dict, pairs: int, frames, card: str) -> dict:
     return out
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--root", default=os.path.join(HERE, ".."),
-                    help="checkout whose package is profiled")
-    ap.add_argument("--compare", help="a second checkout, measured in "
-                                      "turns with --root")
-    ap.add_argument("--pairs", type=int, default=10,
-                    help="pairs of whole runs for --compare")
-    ap.add_argument("--warm", type=int, default=40,
-                    help="frames before the window")
-    ap.add_argument("--window", type=int, default=50,
-                    help="frames in the profiled window")
-    args = ap.parse_args()
-    root = os.path.abspath(args.root)
-
+def _profile(tree: dict, overrides: dict, frames, gt, args, label: str,
+             card: str) -> dict:
+    """One whole run (frames/s, stage split, accuracy, launches), then
+    the steady window unprofiled and profiled."""
     import numpy as np
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    if not torch.cuda.is_available():
-        print("profile_torch: needs a CUDA device", file=sys.stderr)
-        return 1
-    top = os.path.join(HERE, "..")
-    tree = _load_tree(root)
     _activate(tree)
-    SlamConfig = tree["ndt_slam_tpu_torch.config"].SlamConfig
-    carmen = tree["ndt_slam_tpu_torch.io.carmen"]
+    cfg = tree["ndt_slam_tpu_torch.config"].SlamConfig().replace(**overrides)
     ate_rmse = tree["ndt_slam_tpu_torch.metrics"].ate_rmse
     kernels = tree["ndt_slam_tpu_torch.ndt.kernels"]
     FrontEnd = tree["ndt_slam_tpu_torch.pipeline.frontend"].FrontEnd
     run_slam = tree["ndt_slam_tpu_torch.pipeline.runner"].run_slam
-
-    data = os.path.join(top, "tests", "data")
-    frames = carmen.read_carmen_log(os.path.join(data, "office_loop.clf"))
-    gt = carmen.read_carmen_gt(os.path.join(data, "office_loop.gt"))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    if args.compare:
-        other = os.path.abspath(args.compare)
-        trees = {os.path.relpath(root, top): tree,
-                 os.path.relpath(other, top): _load_tree(other)}
-        print(json.dumps(_compare(trees, args.pairs, frames, card)))
-        return 0
     device = torch.device("cuda", 0)
-    cfg = SlamConfig()
     kernels._load()
 
-    # whole run: frames/s, stage split, accuracy
     run_slam(frames, cfg.replace(end_frame=20), device)      # warm-up
     kernels.reset_launch_counts()
     fe = run_slam(frames, cfg, device)
@@ -173,7 +147,9 @@ def main() -> int:
     n = len(fe.pose_history)
     loop_s = fe.metrics[-1]["wall_s"]
     result = {
-        "root": os.path.relpath(root, top), "card": card,
+        "root": label, "card": card, "config": overrides,
+        "incremental_grid": getattr(fe, "incremental_grid", False),
+        "n_grid_fallbacks": getattr(fe, "n_grid_fallbacks", 0),
         "frames": n, "loop_s": loop_s, "frames_per_s": n / loop_s,
         "ate_m": float(ate_rmse(fe.get_poses(), gt[:n])),
         "accept": float(np.mean([bool(m.get("successful"))
@@ -183,7 +159,6 @@ def main() -> int:
             fe.timer.ms.items(), key=lambda kv: -kv[1])},
     }
 
-    # steady window, unprofiled then profiled
     def window(profiled: bool):
         fe = FrontEnd(cfg, device)
         for fr in frames[:args.warm]:
@@ -207,9 +182,7 @@ def main() -> int:
     wall_s = window(False)
     events = window(True)
     if not events:
-        print("profile_torch: the profiler recorded no device event",
-              file=sys.stderr)
-        return 1
+        raise RuntimeError("the profiler recorded no device event")
     device_ms = sum(us for _, us in events) / 1e3
     by_kernel: dict[str, list] = {}
     for name, us in events:
@@ -220,6 +193,9 @@ def main() -> int:
         "window_frames": args.window,
         "window_wall_ms_per_frame": wall_s * 1e3 / args.window,
         "device_ops_per_frame": len(events) / args.window,
+        "d2h_copies_per_frame": sum(
+            "memcpy dtoh" in name.lower() for name, _ in events)
+        / args.window,
         "device_ms_per_frame": device_ms / args.window,
         "device_busy_share": device_ms / (wall_s * 1e3),
         "kernels_us": {k: {"launches": len(v),
@@ -227,7 +203,59 @@ def main() -> int:
                            "max": max(v), "sum_ms": sum(v) / 1e3}
                        for k, v in sorted(by_kernel.items())},
     })
-    print(json.dumps(result))
+    return result
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--root", default=os.path.join(HERE, ".."),
+                    help="checkout whose package is profiled")
+    ap.add_argument("--compare", help="a second checkout, measured in "
+                                      "turns with --root")
+    ap.add_argument("--incremental-grid", action="store_true",
+                    help="measure the lattice path and the full rebuild "
+                         "of --root in turns, then profile each")
+    ap.add_argument("--pairs", type=int, default=10,
+                    help="pairs of whole runs for --compare and "
+                         "--incremental-grid")
+    ap.add_argument("--warm", type=int, default=40,
+                    help="frames before the window")
+    ap.add_argument("--window", type=int, default=50,
+                    help="frames in the profiled window")
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch: needs a CUDA device", file=sys.stderr)
+        return 1
+    top = os.path.join(HERE, "..")
+    tree = _load_tree(root)
+    carmen = tree["ndt_slam_tpu_torch.io.carmen"]
+    data = os.path.join(top, "tests", "data")
+    frames = carmen.read_carmen_log(os.path.join(data, "office_loop.clf"))
+    gt = carmen.read_carmen_gt(os.path.join(data, "office_loop.gt"))
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    label = os.path.relpath(root, top)
+    if args.compare:
+        other = os.path.abspath(args.compare)
+        sides = {label: (tree, {}),
+                 os.path.relpath(other, top): (_load_tree(other), {})}
+        print(json.dumps(_compare(sides, args.pairs, frames, card)))
+        return 0
+    if args.incremental_grid:
+        sides = {"lattice": (tree, {"ndt_incremental_grid": 1}),
+                 "full_rebuild": (tree, {"ndt_incremental_grid": 0})}
+        print(json.dumps(_compare(sides, args.pairs, frames, card)))
+        for name, (mods, overrides) in sides.items():
+            print(json.dumps(_profile(mods, overrides, frames, gt, args,
+                                      f"{label} ({name})", card)))
+        return 0
+    print(json.dumps(_profile(tree, {}, frames, gt, args, label, card)))
     return 0
 
 

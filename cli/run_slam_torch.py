@@ -1,16 +1,21 @@
 #!/usr/bin/env python
-"""Run the PyTorch/CUDA port (ndt_slam_tpu_torch) over a CARMEN log.
+"""Run the PyTorch/CUDA port (ndt_slam_tpu_torch) over a log file.
 
 Examples:
   python cli/run_slam_torch.py --log tests/data/office_loop.clf \\
       --format carmen --out out/ --gt tests/data/office_loop.gt
-  python cli/run_slam_torch.py --log intel.clf --format carmen --out out/ \\
-      --end-frame 500 --device cpu
+  python cli/run_slam_torch.py --log data/tsukuba.txt --format tsukuba \\
+      --out out/ --checkpoint out/state.npz --checkpoint-every 100
+  python cli/run_slam_torch.py --log data/tsukuba.txt --format tsukuba \\
+      --out out/ --checkpoint out/state.npz --resume
+  python cli/run_slam_torch.py --simulate 120 --out out/ --device cpu
 
 Writes poses.txt, poses_full.txt, map.pcd, submap_NNN.pcd,
 metrics.jsonl and summary.json into --out. --device defaults to cuda
 and fails when there is no CUDA device; pass --device cpu to run the
-plain PyTorch twins instead of the kernels.
+plain PyTorch twins instead of the kernels. The incremental moment
+lattice is switched through --config ({"ndt_incremental_grid": 1} or
+0); summary.json says which grid path and which resampler ran.
 """
 
 from __future__ import annotations
@@ -28,8 +33,11 @@ import numpy as np  # noqa: E402
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__)
-    ap.add_argument("--log", required=True, help="input log file")
-    ap.add_argument("--format", choices=["carmen"], default="carmen")
+    ap.add_argument("--log", help="input log file")
+    ap.add_argument("--format", choices=["tsukuba", "carmen"],
+                    default="tsukuba")
+    ap.add_argument("--simulate", type=int, default=0,
+                    help="run on N simulated frames instead of a log")
     ap.add_argument("--out", required=True, help="output directory")
     ap.add_argument("--config", help="JSON file of SlamConfig overrides")
     ap.add_argument("--gt", help="ground-truth poses file (one "
@@ -37,10 +45,20 @@ def main():
                                  "adds ATE to summary.json")
     ap.add_argument("--start-frame", type=int)
     ap.add_argument("--end-frame", type=int)
+    ap.add_argument("--sidelidar", action="store_true")
+    ap.add_argument("--checkpoint",
+                    help="checkpoint file (.npz) to save SLAM state to")
+    ap.add_argument("--checkpoint-every", type=int, default=0,
+                    help="save the checkpoint every N frames (0 = only "
+                         "at the end, when --checkpoint is given)")
+    ap.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint if it exists")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args()
+    if not args.simulate and not args.log:
+        ap.error("need --log or --simulate")  # before any heavy import
 
     import torch
 
@@ -50,7 +68,10 @@ def main():
                  "available (pass --device cpu to run on the CPU)")
 
     from ndt_slam_tpu_torch.config import SlamConfig
+    from ndt_slam_tpu_torch.io import native
     from ndt_slam_tpu_torch.io.carmen import read_carmen_gt, read_carmen_log
+    from ndt_slam_tpu_torch.io.simulate import simulate_sequence
+    from ndt_slam_tpu_torch.io.tsukuba import read_tsukuba_log
     from ndt_slam_tpu_torch.metrics import ate_rmse
     from ndt_slam_tpu_torch.pipeline.runner import run_slam
 
@@ -62,17 +83,45 @@ def main():
         overrides["start_frame"] = args.start_frame
     if args.end_frame is not None:
         overrides["end_frame"] = args.end_frame
+    if args.sidelidar:
+        overrides["sidelidar"] = True
     cfg = SlamConfig().replace(**overrides)
 
-    frames = read_carmen_log(args.log)
+    true_poses = read_carmen_gt(args.gt) if args.gt else None
+    if args.simulate:
+        frames = simulate_sequence(n_frames=args.simulate)
+        stamps = [f.sid for f in frames]
+        if true_poses is None:
+            true_poses = np.asarray([f.true_pose for f in frames])
+        cfg = cfg.replace(end_frame=max(cfg.end_frame, args.simulate))
+        reader = "simulator"
+    else:
+        # the native parsers where csrc/libndtslam.so loads, else numpy
+        reader = "native" if native.available() else "numpy"
+        if args.format == "carmen":
+            read = native.read_carmen_log if native.available() \
+                else read_carmen_log
+            frames = read(args.log)
+        else:
+            read = native.read_tsukuba_log if native.available() \
+                else read_tsukuba_log
+            frames = read(args.log, sidelidar=cfg.sidelidar)
+        stamps = [f.stamp for f in frames]
+
     os.makedirs(args.out, exist_ok=True)
     t0 = time.perf_counter()
     fe = run_slam(frames, cfg, device, out_dir=args.out,
                   metrics_path=os.path.join(args.out, "metrics.jsonl"),
-                  verbose=args.verbose)
+                  verbose=args.verbose, checkpoint_path=args.checkpoint,
+                  checkpoint_every=args.checkpoint_every, resume=args.resume)
     summary = {
         "frames": len(fe.pose_history),
         "device": str(device),
+        "incremental_grid": fe.incremental_grid,
+        "n_grid_fallbacks": fe.n_grid_fallbacks,
+        "native_library": native.status(),
+        "log_reader": reader,
+        "resampler": fe.resampler,
         "wall_s": round(time.perf_counter() - t0, 2),
         "accept_rate": float(np.mean([
             1.0 if m.get("successful") else 0.0 for m in fe.metrics
@@ -80,12 +129,11 @@ def main():
     }
     if device.type == "cuda":
         summary["device_name"] = torch.cuda.get_device_name(device)
-    if args.gt and fe.pose_history:
+    if true_poses is not None and fe.pose_history:
         n = len(fe.pose_history)
-        true_poses = read_carmen_gt(args.gt)
         # poses_full.txt row k is the k-th processed frame
-        first = next(i for i, f in enumerate(frames)
-                     if f.stamp >= cfg.start_frame)
+        first = next(i for i, s in enumerate(stamps)
+                     if s >= cfg.start_frame)
         summary["ate_rmse_m"] = ate_rmse(fe.get_poses(),
                                          true_poses[first:first + n])
     with open(os.path.join(args.out, "summary.json"), "w") as f:

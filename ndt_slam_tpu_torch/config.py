@@ -6,16 +6,28 @@ and `--config` JSON files load unchanged in either package.
 
 Nothing here looks at the machine: which engine runs is decided by the
 device of the tensors the caller passes (CUDA tensors go to the
-kernels of `ndt/kernels.py`, CPU tensors to their plain twins).
-Features not ported yet (loop closure, the incremental moment lattice,
-the pipelined front end) resolve to off; `FrontEnd` refuses a config
-that forces them on.
+kernels of `ndt/kernels.py`, CPU tensors to their plain twins), and a
+setting whose "auto" value depends on the device is resolved by the
+caller that knows it (`resolved_ndt_incremental_grid(device_type)`).
+Features not ported yet (loop closure, the pipelined front end) resolve
+to off; `FrontEnd` refuses a config that forces them on.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Mapping
+
+
+# What ndt_incremental_grid = -1 means on a CUDA device. Off: on an
+# H100 the frame loop is bound by launches, not by device work, and the
+# lattice path trades the full rebuild's one large sort for two
+# 2048-row moment scatters and a window gather, some 60 more small
+# device operations a frame; measured in turns in one process it lost
+# to the full rebuild (PERF.md has the runs). The JAX package resolves
+# its -1 to on for its accelerator.
+LATTICE_AUTO_ON_CUDA = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,8 +82,13 @@ class SlamConfig:
     grid_cells_x: int = 192
     grid_cells_y: int = 192
 
-    # Incremental NDT target grid: not ported yet (-1 and 0 mean off).
+    # Incremental NDT target grid: a running lattice of NDT moments
+    # (additive, keyed by absolute cell index), so that a frame's grid
+    # is a window slice plus the newest scan's scatter instead of a
+    # rescatter of the whole local map. -1 = auto (see
+    # resolved_ndt_incremental_grid); 0/1 force.
     ndt_incremental_grid: int = -1
+    # Lattice side in cells; -1 = auto (see resolved_grid_mom_cells).
     grid_mom_cells: int = -1
     # Pipelined host sync: not ported yet (-1 and 0 mean synchronous).
     pipeline_depth: int = -1
@@ -124,10 +141,36 @@ class SlamConfig:
         """Host-sync chunk depth: the port's front end is synchronous."""
         return 0
 
+    def resolved_ndt_incremental_grid(self, device_type: str) -> bool:
+        """Whether the front end on a device of `device_type` ("cuda",
+        "cpu") registers against the incremental moment lattice.
+
+        Forced off under ndt_target_filtered: the lattice mirrors the
+        unfiltered (previous closed cloud + proc + newest scan) target,
+        while that mode registers against the voxel-filtered current
+        submap. 0/1 force; -1 is LATTICE_AUTO_ON_CUDA on "cuda" and off
+        elsewhere."""
+        if self.ndt_target_filtered:
+            return False
+        if self.ndt_incremental_grid >= 0:
+            return bool(self.ndt_incremental_grid)
+        return LATTICE_AUTO_ON_CUDA and device_type == "cuda"
+
     @property
-    def resolved_ndt_incremental_grid(self) -> bool:
-        """The grid is rebuilt in full every frame in the port."""
-        return False
+    def resolved_grid_mom_cells(self) -> int:
+        """Moment-lattice side length (cells), even, >= the grid window.
+        Auto: the window plus, on each side, the submap's travel
+        (submap_sep_thre) and 4 m of prediction slack, so that every
+        frame window of the open submap fits."""
+        window = max(self.grid_cells_x, self.grid_cells_y)
+        if self.grid_mom_cells > 0:
+            b = max(self.grid_mom_cells, window)
+        else:
+            margin = math.ceil(
+                (self.submap_sep_thre + 4.0) / self.ndt_resolution
+            )
+            b = window + 2 * margin
+        return b + (b % 2)
 
     def replace(self, **kw) -> "SlamConfig":
         return dataclasses.replace(self, **kw)

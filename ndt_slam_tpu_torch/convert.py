@@ -1,19 +1,22 @@
-"""Carry state from the JAX package into the port.
+"""Carry state from the JAX package, or from a checkpoint file, into
+the port.
 
 Turns arrays taken from `ndt_slam_tpu` objects (as numpy, through
 `np.asarray`) into the port's objects: a SlamConfig from `to_dict()`,
-PointBuffer, NDTGrid, CompactGrid, and a FrontEnd whose map and carries
-are restored from the fields that
-`ndt_slam_tpu.pipeline.checkpoint.save_checkpoint` writes (its `.npz`
-arrays and JSON manifest). `load_checkpoint` reads such a file with
-numpy and json only; it refuses loop-closure backend state (not ported)
-and never writes a checkpoint.
+PointBuffer, NDTGrid, CompactGrid, the moment lattice, and a FrontEnd
+whose map and carries are restored from the fields of the checkpoint
+format (`.npz` arrays and a JSON manifest) that both
+`ndt_slam_tpu.pipeline.checkpoint` and the port's `pipeline.checkpoint`
+write. `frontend_from_state` is the one reader of that format
+(`pipeline.checkpoint.load_checkpoint` is built on it); it refuses
+loop-closure backend state (not ported).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
-from typing import Any, Mapping, Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -30,11 +33,14 @@ from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
 _BACKEND_PREFIXES = ("be_", "kf_")
 
 
-def config_from_dict(d: Mapping[str, Any]) -> SlamConfig:
-    """SlamConfig from `SlamConfig.to_dict()` (JSON lists -> tuples)."""
-    return SlamConfig.from_dict(
-        {k: tuple(v) if isinstance(v, list) else v for k, v in d.items()}
-    )
+def stored_config(meta: Mapping) -> dict:
+    """The manifest's config as SlamConfig keyword arguments: JSON lists
+    back to tuples, and keys that are no SlamConfig fields (written by
+    another build) dropped; fields the manifest lacks take their
+    defaults."""
+    known = {f.name for f in dataclasses.fields(SlamConfig)}
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in meta["cfg"].items() if k in known}
 
 
 def _t(a, device, dtype=None) -> torch.Tensor:
@@ -68,11 +74,29 @@ def compact_grid(cg, device) -> CompactGrid:
                         cell_slot=cell_slot_of_table(out))
 
 
+def moment_lattice(mom, anchor, device):
+    """(mom [B*B, 6] float32, anchor [2] int32) of an incremental
+    moment lattice, on `device`."""
+    return _t(mom, device, np.float32), _t(anchor, device, np.int32)
+
+
+def read_checkpoint(path: str):
+    """(arrays, manifest) of a checkpoint file, numpy and json only."""
+    with np.load(path, allow_pickle=False) as data:
+        meta = json.loads(str(data["manifest"]))
+        arrays = {k: np.asarray(data[k]) for k in data.files
+                  if k != "manifest"}
+    return arrays, meta
+
+
 def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
                         device, cfg: Optional[SlamConfig] = None
                         ) -> FrontEnd:
     """A FrontEnd restored from checkpoint fields: `arrays` holds the
-    `.npz` arrays, `meta` the JSON manifest."""
+    `.npz` arrays, `meta` the JSON manifest. Without `cfg` the
+    manifest's config is taken. A saved moment lattice is restored as it
+    is (a rebuild would sum in another order); one of another size than
+    `cfg` gives is left out, and the map rebuilds it on first use."""
     backend = [k for k in arrays if k.startswith(_BACKEND_PREFIXES)]
     if meta.get("backend") is not None or backend:
         raise ValueError(
@@ -81,12 +105,14 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
         )
     device = torch.device(device)
     if cfg is None:
-        cfg = config_from_dict(meta["cfg"])
+        cfg = SlamConfig.from_dict(stored_config(meta))
     fe = FrontEnd(cfg, device)
     fe.cnt = int(meta["cnt"])
     fe.metrics = list(meta["metrics"])
     if meta["has_prev_odo"]:
         fe.prev_odo = np.asarray(arrays["prev_odo"], np.float32)
+    if meta.get("has_init_pose"):
+        fe.init_pose = np.asarray(arrays["init_pose"], np.float32)
     fe.last_cov = _t(arrays["last_cov"], device, np.float32)
     fe.pose_history = [p.astype(np.float32) for p in arrays["pose_history"]]
     fe.cov_history = [c.astype(np.float32) for c in arrays["cov_history"]]
@@ -95,6 +121,19 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
     pm.atd = float(meta["pcmap"]["atd"])
     pm.poses = [p.astype(np.float32) for p in arrays["pcmap_poses"]]
     pm.last_pose = np.asarray(arrays["pcmap_last_pose"], np.float32)
+    if meta["pcmap"].get("has_last_scan"):
+        pm.last_scan = point_buffer(arrays["pcmap_last_scan_xy"],
+                                    arrays["pcmap_last_scan_mask"], device)
+    pm.local_scans = [
+        np.asarray(arrays[f"local_scan_{i}"], np.float32)
+        for i in range(int(meta["pcmap"].get("n_local_scans", 0)))
+    ]
+    if "pcmap_mom" in arrays:
+        B = cfg.resolved_grid_mom_cells
+        if arrays["pcmap_mom"].shape[0] == B * B:
+            pm._mom, pm._mom_anchor = moment_lattice(
+                arrays["pcmap_mom"], arrays["pcmap_mom_anchor"], device)
+            pm._mom_valid = True
     pm.submaps = []
     for si, sd in enumerate(meta["pcmap"]["submaps"]):
         sm = Submap(cfg, float(sd["atd_s"]), int(sd["cnt_s"]), device)
@@ -115,14 +154,3 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
                                           device)
         pm.submaps.append(sm)
     return fe
-
-
-def load_checkpoint(path: str, device,
-                    cfg: Optional[SlamConfig] = None) -> FrontEnd:
-    """Read a checkpoint written by the JAX package and restore it as a
-    FrontEnd of the port on `device`."""
-    with np.load(path, allow_pickle=False) as data:
-        meta = json.loads(str(data["manifest"]))
-        arrays = {k: np.asarray(data[k]) for k in data.files
-                  if k != "manifest"}
-    return frontend_from_state(arrays, meta, device, cfg)

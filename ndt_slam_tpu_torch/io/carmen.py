@@ -10,15 +10,11 @@ beyond `max_range` (or below 0.05 m) are dropped.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional
+from typing import List, Optional
 
 import numpy as np
 
-
-class LogFrame(NamedTuple):
-    stamp: int
-    odo_pose: np.ndarray   # [3] (tx, ty, theta_deg)
-    scan_xy: np.ndarray    # [n,2] sensor frame
+from ndt_slam_tpu_torch.io.tsukuba import LogFrame
 
 
 def _points_from_ranges(

@@ -3,9 +3,12 @@
 runs).
 
 Device side: appends, the interior dynamic-removal pass, concatenation
-and the voxel filter on fixed-capacity buffers. Host side: the submap
-open/close decision (travelled distance vs `submap_sep_thre`) and the
-list of submaps.
+and the voxel filter on fixed-capacity buffers, and the incremental
+NDT moment lattice (running moments of the previous submap's closed
+cloud plus the open submap's proc buffer; every row appended to proc
+is also scattered into it). Host side: the submap open/close decision
+(travelled distance vs `submap_sep_thre`), the list of submaps and the
+lattice's anchor.
 
 Behaviour kept from the reference (as in the JAX package):
 - a new submap is seeded with the previous submap's last two raw scans;
@@ -33,6 +36,7 @@ from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer, compact
 from ndt_slam_tpu_torch.mapping.dynamic import process_interior_scan
 from ndt_slam_tpu_torch.mapping.voxel import voxel_filter
+from ndt_slam_tpu_torch.ndt.grid import moments_abs
 
 
 def _scatter_rows(base: PointBuffer, idx, src: PointBuffer, ok):
@@ -86,24 +90,36 @@ def _concat(a: PointBuffer, b: PointBuffer, capacity: int) -> PointBuffer:
     return PointBuffer(xy, mask)
 
 
-def _add_scan_and_target(
+def _add_scan_target_mom(
     proc: PointBuffer, proc_count, raw_a: PointBuffer, raw_b: PointBuffer,
-    scan: PointBuffer, prev: PointBuffer, *,
+    scan: PointBuffer, prev: PointBuffer, mom, mom_anchor, *,
     append_scan: bool, do_interior: bool, include_newest: bool,
     has_prev: bool, filtered: bool, cap_sub: int, cap_local: int,
     resol: float, thre: float, leaf: float,
+    mom_cells: int = 0, grid_res: float = 0.0,
 ):
     """Per-frame map update: Submap.add_scan (raw append and/or interior
     dynamic-removal pass) + Submap.cloud() + the next frame's
     registration target. `raw_a`/`raw_b` are the submap's last two raw
     scans (used only with `do_interior`); `prev` is the previous
-    submap's closed cloud (used only with `has_prev`). Returns (proc,
-    proc_count, target)."""
+    submap's closed cloud (used only with `has_prev`).
+
+    With a moment lattice `mom` [mom_cells^2, 6] (else None) every row
+    this call appends to `proc`, and no row the full buffer dropped, is
+    also scattered into it. Returns (proc, proc_count, target, mom)."""
+
+    def add(proc, proc_count, mom, src):
+        proc, proc_count, rows, ok = _append_rows(proc, proc_count, src)
+        if mom is not None:
+            mom = mom + moments_abs(rows.xy, ok, mom_anchor, mom_cells,
+                                    mom_cells, grid_res)
+        return proc, proc_count, mom
+
     if append_scan:
-        proc, proc_count = _append(proc, proc_count, scan)
+        proc, proc_count, mom = add(proc, proc_count, mom, scan)
     if do_interior:
         processed = process_interior_scan(raw_a, raw_b, scan, resol, thre)
-        proc, proc_count = _append(proc, proc_count, processed)
+        proc, proc_count, mom = add(proc, proc_count, mom, processed)
     cloud = _concat(proc, scan, cap_sub) if include_newest else proc
     cur_t = voxel_filter(cloud, leaf) if filtered else cloud
     if has_prev:
@@ -111,7 +127,29 @@ def _add_scan_and_target(
     else:
         target = _concat(cur_t, PointBuffer.empty(1, proc.xy.device),
                          cap_local)
-    return proc, proc_count, target
+    return proc, proc_count, target, mom
+
+
+def _add_scan_and_target(proc, proc_count, raw_a, raw_b, scan, prev, **flags):
+    """`_add_scan_target_mom` without a lattice: (proc, proc_count,
+    target)."""
+    return _add_scan_target_mom(proc, proc_count, raw_a, raw_b, scan, prev,
+                                None, None, **flags)[:3]
+
+
+def _rebuild_mom(prev: PointBuffer, proc: PointBuffer, mom_anchor, *,
+                 mom_cells: int, grid_res: float, has_prev: bool):
+    """From-scratch moment lattice: the current proc buffer plus the
+    previous submap's closed cloud (the additive part of the
+    registration target; the newest raw scan is added per frame at
+    registration). Runs on bootstrap, after a submap close and after a
+    load that carries no lattice; the frame loop only ever adds to it."""
+    mom = moments_abs(proc.xy, proc.mask, mom_anchor, mom_cells, mom_cells,
+                      grid_res)
+    if has_prev:
+        mom = mom + moments_abs(prev.xy, prev.mask, mom_anchor, mom_cells,
+                                mom_cells, grid_res)
+    return mom
 
 
 class Submap:
@@ -192,9 +230,22 @@ class PointCloudMap:
         self.atd = 0.0
         self.submaps: List[Submap] = [Submap(cfg, 0.0, 0, self.device)]
         self.last_pose = np.zeros(3, dtype=np.float32)
+        self.last_scan: Optional[PointBuffer] = None
+        # raw sensor-frame scans, host copies (the checkpoint carries
+        # them for the map rewrite after a loop closure)
+        self.local_scans: List[np.ndarray] = []
         # registration target left by the last fused add_points (valid
         # until the next map mutation)
         self._cached_target: Optional[PointBuffer] = None
+        # incremental NDT moment lattice: running moments of (previous
+        # submap's closed cloud + open submap's proc buffer), added to
+        # by the fused add path and rebuilt from scratch after the
+        # mutations that bypass it (submap close, a load without one)
+        self.incremental_grid = cfg.resolved_ndt_incremental_grid(
+            self.device.type)
+        self._mom: Optional[torch.Tensor] = None
+        self._mom_anchor: Optional[torch.Tensor] = None
+        self._mom_valid = False
 
     def add_pose(self, pose_deg: np.ndarray):
         pose_deg = np.asarray(pose_deg, dtype=np.float32)
@@ -220,11 +271,48 @@ class PointCloudMap:
                 new.add_scan(s, carried=True)
             new.add_scan(scan_map_frame)
             self.submaps.append(new)
+            self._mom_valid = False
         else:
             self._cached_target = self._add_scan_fused(cur, scan_map_frame)
 
+    def mom_state(self):
+        """(mom [B*B, 6], anchor [2] int32) of the incremental lattice,
+        rebuilt from scratch if a bypassing mutation invalidated it. The
+        anchor centers the lattice on the open submap's first pose;
+        `resolved_grid_mom_cells` sizes it so that every frame window
+        within the submap's travel fits (the registration step still
+        reports a window that does not)."""
+        cfg = self.cfg
+        if not self._mom_valid:
+            B = cfg.resolved_grid_mom_cells
+            cur = self.submaps[-1]
+            first = (self.poses[cur.cnt_s] if self.poses
+                     else np.zeros(3, np.float32))
+            anchor = np.floor(
+                np.asarray(first[:2], np.float32) / cfg.ndt_resolution
+                - B / 2.0
+            ).astype(np.int32)
+            self._mom_anchor = torch.from_numpy(anchor).to(self.device)
+            has_prev = len(self.submaps) >= 2
+            prev = (self.submaps[-2].final_cloud if has_prev
+                    else PointBuffer.empty(1, self.device))
+            self._mom = _rebuild_mom(
+                prev, cur.proc, self._mom_anchor, mom_cells=B,
+                grid_res=cfg.ndt_resolution, has_prev=has_prev,
+            )
+            self._mom_valid = True
+        return self._mom, self._mom_anchor
+
+    def newest_raw(self) -> Optional[PointBuffer]:
+        """The open submap's newest raw scan (map frame): the part of
+        the registration target under remove_moving that is not in the
+        lattice (it rides along in cloud(), not in proc)."""
+        cur = self.submaps[-1]
+        return cur.raw[-1] if cur.raw else None
+
     def _add_scan_fused(self, cur: Submap, scan: PointBuffer) -> PointBuffer:
-        """Map update for this frame that also returns the next target."""
+        """Map update for this frame that also returns the next target
+        (and adds to the lattice when the incremental grid is on)."""
         cfg = self.cfg
         append_scan, do_interior, include_newest = cur.step_flags()
         has_prev = len(self.submaps) >= 2
@@ -232,8 +320,10 @@ class PointCloudMap:
                 else PointBuffer.empty(1, self.device))
         raw_a = cur.raw[-2] if len(cur.raw) >= 2 else scan
         raw_b = cur.raw[-1] if len(cur.raw) >= 1 else scan
-        proc, count, target = _add_scan_and_target(
-            cur.proc, cur.proc_count, raw_a, raw_b, scan, prev,
+        mom, anchor = (self.mom_state() if self.incremental_grid
+                       else (None, None))
+        proc, count, target, mom = _add_scan_target_mom(
+            cur.proc, cur.proc_count, raw_a, raw_b, scan, prev, mom, anchor,
             append_scan=append_scan, do_interior=do_interior,
             include_newest=include_newest, has_prev=has_prev,
             filtered=cfg.ndt_target_filtered,
@@ -241,7 +331,10 @@ class PointCloudMap:
             cap_local=cfg.max_local_map_points,
             resol=cfg.diff_resol, thre=cfg.thre_neighbor,
             leaf=cfg.submap_leaf_size,
+            mom_cells=cfg.resolved_grid_mom_cells,
+            grid_res=cfg.ndt_resolution,
         )
+        self._mom = mom
         cur._push_raw(scan)
         cur.n_scans += 1
         cur.proc, cur.proc_count = proc, count
@@ -293,3 +386,10 @@ class PointCloudMap:
 
     def get_last_pose(self) -> np.ndarray:
         return self.last_pose
+
+    def set_last_scan(self, scan: PointBuffer):
+        self.last_scan = scan
+
+    def record_local_scan(self, xy_local: np.ndarray):
+        """Keep a frame's sensor-frame scan (host copy)."""
+        self.local_scans.append(np.asarray(xy_local, dtype=np.float32))

@@ -1,12 +1,14 @@
-"""Evaluation and per-frame records: ATE and a JSONL writer."""
+"""Evaluation and per-frame records: ATE, RPE and JSONL writers."""
 
 from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import Iterable, Optional
 
 import numpy as np
+
+from ndt_slam_tpu_torch.core.angles import wrap_deg
 
 
 def ate_rmse(est_poses: np.ndarray, true_poses: np.ndarray,
@@ -30,14 +32,47 @@ def ate_rmse(est_poses: np.ndarray, true_poses: np.ndarray,
     return float(np.sqrt((d ** 2).sum(axis=1).mean()))
 
 
+def rpe_rmse(est_poses: np.ndarray, true_poses: np.ndarray,
+             delta: int = 1) -> tuple[float, float]:
+    """Relative pose error over `delta`-frame intervals.
+    Returns (trans RMSE [m], rot RMSE [deg])."""
+    e = np.asarray(est_poses, dtype=np.float64)
+    t = np.asarray(true_poses, dtype=np.float64)
+    n = len(e) - delta
+    if n <= 0 or e.shape != t.shape:
+        raise ValueError(f"need more than {delta} poses of one shape: "
+                         f"{e.shape} vs {t.shape}")
+    errs_t, errs_r = [], []
+    for i in range(n):
+        de = _rel(e[i], e[i + delta])
+        dt = _rel(t[i], t[i + delta])
+        errs_t.append(np.hypot(de[0] - dt[0], de[1] - dt[1]))
+        errs_r.append(abs(wrap_deg(de[2] - dt[2])))
+    return (
+        float(np.sqrt(np.mean(np.square(errs_t)))),
+        float(np.sqrt(np.mean(np.square(errs_r)))),
+    )
+
+
+def _rel(a, b):
+    """Pose b in the frame of pose a (deg)."""
+    c, s = np.cos(np.radians(a[2])), np.sin(np.radians(a[2]))
+    dx, dy = b[0] - a[0], b[1] - a[1]
+    return np.array([c * dx + s * dy, -s * dx + c * dy,
+                     float(wrap_deg(b[2] - a[2]))])
+
+
 class JsonlWriter:
-    def __init__(self, path: Optional[str]):
+    """One JSON record a line; `append` keeps what the file holds (a
+    resumed run goes on writing where the interrupted one stopped)."""
+
+    def __init__(self, path: Optional[str], append: bool = False):
         self.path = path
         if path:
             parent = os.path.dirname(path)
             if parent:
                 os.makedirs(parent, exist_ok=True)
-        self._f = open(path, "w") if path else None
+        self._f = open(path, "a" if append else "w") if path else None
 
     def write(self, rec: dict):
         if self._f:
@@ -47,3 +82,9 @@ class JsonlWriter:
     def close(self):
         if self._f:
             self._f.close()
+
+
+def write_jsonl(path: str, records: Iterable[dict]):
+    with open(path, "w") as f:
+        for r in records:
+            f.write(json.dumps(r) + "\n")

@@ -1,7 +1,6 @@
 """NDT grid construction: per-cell mean/covariance over a dense 2D window.
 
-Port of `ndt_slam_tpu.ndt.grid` (full rebuild only; the incremental
-moment lattice is not ported yet). The window is a fixed nx*ny block of
+Port of `ndt_slam_tpu.ndt.grid`. The window is a fixed nx*ny block of
 cells recentered every frame on the predicted pose. Moments are summed
 in cell-relative coordinates (each point minus its own cell's lower
 corner), so the covariance's sum-of-squares cancellation stays exact to
@@ -10,6 +9,15 @@ fixed order (core/segment.py), so a run on the card repeats bit for
 bit. Near-singular covariances are inflated like PCL's
 VoxelGridCovariance (lambda_min floored at 0.01 lambda_max); cells with
 fewer than `min_pts` points are invalid.
+
+Two ways to the same grid. `build_grid` rescatters the whole target
+buffer into the frame's window. The incremental lattice keeps running
+moments instead: `moments_abs` keys cells by the absolute index
+floor(x / resolution), independent of any window origin, so moments of
+successive scans add up in a lattice wider than the window, and
+`window_grid_from_lattice` cuts the frame's window out of it. A point
+lands in the same cell with the same cell-relative coordinates either
+way; the two grids differ only in f32 summation order.
 """
 
 from __future__ import annotations
@@ -102,13 +110,11 @@ def grid_moments(xy, mask, origin, nx: int, ny: int, resolution: float):
     return tuple(acc[:, i] for i in range(6))
 
 
-def grid_finalize(moments, origin, nx: int, ny: int, resolution: float,
-                  min_pts: int = 6, eig_mult: float = 0.01) -> NDTGrid:
-    """Turn moments into per-cell mean / inverse covariance."""
+def _finalize(moments, corner_x, corner_y, origin, nx: int, ny: int,
+              resolution: float, min_pts: int, eig_mult: float) -> NDTGrid:
+    """Per-cell mean / inverse covariance from cell-relative moments and
+    the cells' lower corners."""
     count, sx, sy, sxx, sxy, syy = moments
-    cell = torch.arange(nx * ny, dtype=torch.int32, device=count.device)
-    corner_x = (cell // ny).to(sx.dtype) * resolution + origin[0]
-    corner_y = (cell % ny).to(sy.dtype) * resolution + origin[1]
     n = torch.clamp(count, min=1.0)
     mx, my = sx / n, sy / n
     # unbiased covariance (PCL divides by n-1)
@@ -130,6 +136,93 @@ def grid_finalize(moments, origin, nx: int, ny: int, resolution: float,
     inv_cov = torch.where(valid[:, None, None], inv_cov, 0.0)
     return NDTGrid(origin=origin, mean=mean, inv_cov=inv_cov, valid=valid,
                    nx=nx, ny=ny, resolution=resolution)
+
+
+def grid_finalize(moments, origin, nx: int, ny: int, resolution: float,
+                  min_pts: int = 6, eig_mult: float = 0.01) -> NDTGrid:
+    """Turn moments into per-cell mean / inverse covariance."""
+    cell = torch.arange(nx * ny, dtype=torch.int32, device=origin.device)
+    corner_x = (cell // ny).to(origin.dtype) * resolution + origin[0]
+    corner_y = (cell % ny).to(origin.dtype) * resolution + origin[1]
+    return _finalize(moments, corner_x, corner_y, origin, nx, ny,
+                     resolution, min_pts, eig_mult)
+
+
+def lattice_anchor(center: torch.Tensor, cells: int, resolution: float):
+    """[2] int32 absolute index of the lower-left cell of a `cells`-wide
+    window centered on `center` [2]."""
+    return torch.floor(center / resolution - cells / 2.0).to(torch.int32)
+
+
+def moments_abs(xy, mask, anchor, nx: int, ny: int, resolution: float):
+    """[nx*ny, 6] moment rows (count, sx, sy, sxx, sxy, syy) of the
+    masked points, cells keyed by absolute index minus `anchor` ([2]
+    int32). Additive: lattices accumulate by `+` across scans. The
+    cell's corner is the cell index times the resolution, the very
+    float `_finalize_abs` adds back."""
+    num_cells = nx * ny
+    ci_abs = torch.floor(xy / resolution).to(torch.int32)
+    ci = ci_abs - anchor[None, :]
+    ok = (
+        mask
+        & (ci[:, 0] >= 0) & (ci[:, 0] < nx)
+        & (ci[:, 1] >= 0) & (ci[:, 1] < ny)
+    )
+    cid = torch.where(ok, ci[:, 0] * ny + ci[:, 1], num_cells)
+    corner = ci_abs.to(xy.dtype) * resolution
+    xr = torch.where(ok, xy[:, 0] - corner[:, 0], 0.0)
+    yr = torch.where(ok, xy[:, 1] - corner[:, 1], 0.0)
+    ones = ok.to(xy.dtype)
+    rows = torch.stack([ones, xr, yr, xr * xr, xr * yr, yr * yr], dim=-1)
+    return segment_sum(rows, cid, num_cells)
+
+
+def window_grid_from_lattice(mom, mom_anchor, bx: int, by: int,
+                             frame_anchor, nx: int, ny: int,
+                             resolution: float, extra=None,
+                             min_pts: int = 6, eig_mult: float = 0.01):
+    """Cut the [nx, ny] frame window at `frame_anchor` out of the
+    running lattice `mom` [bx*by, 6] anchored at `mom_anchor`, add the
+    optional fresh moments `extra` [nx*ny, 6], finalize to an NDTGrid.
+
+    Returns (grid, in_range). `in_range` (a bool on the device) is False
+    when the window does not fit inside the lattice; the caller must
+    then fall back to a full rebuild for that frame. What such a call
+    returns is the window `jax.lax.dynamic_slice` cuts: a negative
+    offset counts from the far edge, and the result is clamped into the
+    lattice. The window is gathered by index arithmetic on the device:
+    nothing here waits for the host."""
+    off = frame_anchor - mom_anchor
+    in_range = (
+        (off[0] >= 0) & (off[0] <= bx - nx)
+        & (off[1] >= 0) & (off[1] <= by - ny)
+    )
+    ox = torch.where(off[0] < 0, off[0] + bx, off[0])
+    oy = torch.where(off[1] < 0, off[1] + by, off[1])
+    ox = torch.clamp(ox, 0, bx - nx).to(torch.int64)
+    oy = torch.clamp(oy, 0, by - ny).to(torch.int64)
+    ix = ox + torch.arange(nx, device=mom.device)
+    iy = oy + torch.arange(ny, device=mom.device)
+    win = mom.index_select(0, (ix[:, None] * by + iy[None, :]).reshape(-1))
+    if extra is not None:
+        win = win + extra
+    origin = frame_anchor.to(torch.float32) * resolution
+    moments = tuple(win[:, i] for i in range(6))
+    grid = _finalize_abs(moments, origin, frame_anchor, nx, ny, resolution,
+                         min_pts, eig_mult)
+    return grid, in_range
+
+
+def _finalize_abs(moments, origin, anchor, nx: int, ny: int,
+                  resolution: float, min_pts: int, eig_mult: float) -> NDTGrid:
+    """grid_finalize with the corners restored from absolute cell
+    indices, (local + anchor) * resolution: the exact floats
+    `moments_abs` subtracted."""
+    cell = torch.arange(nx * ny, dtype=torch.int32, device=origin.device)
+    corner_x = ((cell // ny) + anchor[0]).to(origin.dtype) * resolution
+    corner_y = ((cell % ny) + anchor[1]).to(origin.dtype) * resolution
+    return _finalize(moments, corner_x, corner_y, origin, nx, ny,
+                     resolution, min_pts, eig_mult)
 
 
 def build_grid(xy, mask, center, nx: int, ny: int, resolution: float,

@@ -1,18 +1,24 @@
 """Per-frame SLAM step (port of `ndt_slam_tpu.pipeline.frontend`, the
-synchronous full-rebuild path).
+synchronous path).
 
-`_registration_step` does everything numerical for a frame on the
-device of its inputs:
+A registration step does everything numerical for a frame on the device
+of its inputs:
 
-    odometry motion -> predicted pose -> NDT grid build over the local
-    map -> compact table -> source voxel downsample -> Newton align ->
-    fitness -> NDT covariance from the Hessian -> accept/reject ->
-    Kalman fuse (or odometry-only propagation) -> map-frame points.
+    odometry motion -> predicted pose -> NDT grid -> compact table ->
+    source voxel downsample -> Newton align -> fitness -> NDT
+    covariance from the Hessian -> accept/reject -> Kalman fuse (or
+    odometry-only propagation) -> map-frame points.
+
+`_registration_step` builds the grid by rescattering the whole local
+map; `_registration_step_inc` cuts it out of the map's running moment
+lattice and adds the newest raw scan's moments. Both share the tail
+`_register_with_grid`.
 
 `FrontEnd` owns the first-scan bootstrap, the map bookkeeping and the
 metrics trail. The pose, covariance and odometry carries stay on the
 device between frames; the per-frame small outputs come back to the
-host in one device-to-host copy.
+host in one device-to-host copy (a second one only for a frame whose
+window escaped the lattice and is redone through the full rebuild).
 
 Parity notes: cost is forced to failed_cost when the solve is unusable;
 accept iff cost <= score_thre (and the innovation gates hold); on
@@ -33,11 +39,14 @@ from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core import pose2
 from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer, pad_points
 from ndt_slam_tpu_torch.fuse.ekf import gate_and_fuse
+from ndt_slam_tpu_torch.io import native
 from ndt_slam_tpu_torch.mapping.pointcloud_map import PointCloudMap
 from ndt_slam_tpu_torch.mapping.voxel import voxel_filter
 from ndt_slam_tpu_torch.ndt.compact import compact_grid
 from ndt_slam_tpu_torch.ndt.fitness import fitness_score
-from ndt_slam_tpu_torch.ndt.grid import build_grid
+from ndt_slam_tpu_torch.ndt.grid import (
+    build_grid, lattice_anchor, moments_abs, window_grid_from_lattice,
+)
 from ndt_slam_tpu_torch.ndt.score import gauss_constants
 from ndt_slam_tpu_torch.ndt.solve import align
 from ndt_slam_tpu_torch.pre.resample import resample_points_np
@@ -54,11 +63,12 @@ class FrameResult(NamedTuple):
     global_xy: torch.Tensor    # [N,2] scan in map frame at fused pose
     error_pose: torch.Tensor   # [3] map->odom offset (deg)
     trans_probability: torch.Tensor  # score per source point
+    grid_ok: torch.Tensor      # float32: 0.0 iff the window escaped the lattice
 
     def small(self) -> torch.Tensor:
-        """[23] float32: fused(3) cov(9) cost successful iterations
-        matched trans_probability est(3) error(3), so the host fetches
-        a frame's small outputs in one copy."""
+        """[24] float32: fused(3) cov(9) cost successful iterations
+        matched trans_probability est(3) error(3) grid_ok, so the host
+        fetches a frame's small outputs in one copy."""
         return torch.cat([
             self.fused_pose, self.cov.reshape(-1),
             torch.stack([
@@ -66,7 +76,7 @@ class FrameResult(NamedTuple):
                 self.iterations.to(torch.float32), self.matched,
                 self.trans_probability,
             ]),
-            self.est_pose, self.error_pose,
+            self.est_pose, self.error_pose, self.grid_ok[None],
         ])
 
 
@@ -117,7 +127,7 @@ class StageTimer:
 def _registration_step(cfg: SlamConfig, scan_xy, scan_mask, odo_pose,
                        prev_odo, last_pose, last_cov, local_xy, local_mask,
                        timer: Optional[StageTimer] = None) -> FrameResult:
-    mark = timer.mark if timer is not None else (lambda name: None)
+    """Registration against a grid rebuilt from the whole target."""
     # --- odometry prediction
     odo_motion = pose2.cal_motion(odo_pose, prev_odo)
     pred_pose = pose2.cal_pred_pose(odo_motion, last_pose)
@@ -128,6 +138,62 @@ def _registration_step(cfg: SlamConfig, scan_xy, scan_mask, odo_pose,
         cfg.grid_cells_x, cfg.grid_cells_y, cfg.ndt_resolution,
         min_pts=cfg.ndt_min_points_per_cell,
     )
+    return _register_with_grid(
+        cfg, grid, scan_xy, scan_mask, odo_pose, odo_motion, pred_pose,
+        last_pose, last_cov, local_xy, local_mask,
+        grid_ok=torch.ones((), dtype=torch.float32, device=scan_xy.device),
+        timer=timer,
+    )
+
+
+def _registration_step_inc(cfg: SlamConfig, scan_xy, scan_mask, odo_pose,
+                           prev_odo, last_pose, last_cov, local_xy,
+                           local_mask, mom, mom_anchor, newest_xy,
+                           newest_mask, proc_count, include_newest: bool,
+                           timer: Optional[StageTimer] = None) -> FrameResult:
+    """Registration against the incremental moment lattice: the grid is
+    the frame's window of `mom` [B*B, 6] (anchored at `mom_anchor`)
+    plus, with `include_newest`, the fresh moments of the newest raw
+    scan (`newest_xy`, map frame), which under remove_moving rides along
+    in the target but is not in the lattice. The target buffer still
+    feeds the fitness pass.
+
+    `proc_count` (int32, on the device) mirrors the target's overflow
+    rule: the newest scan is concatenated after proc in the submap
+    buffer, so once proc has filled it the scan's tail is dropped from
+    the target. The fresh moments drop the same points: those whose
+    rank among the valid ones is not below the remaining capacity."""
+    odo_motion = pose2.cal_motion(odo_pose, prev_odo)
+    pred_pose = pose2.cal_pred_pose(odo_motion, last_pose)
+
+    B = cfg.resolved_grid_mom_cells
+    nx, ny = cfg.grid_cells_x, cfg.grid_cells_y
+    res = cfg.ndt_resolution
+    frame_anchor = lattice_anchor(pred_pose[:2], nx, res)
+    extra = None
+    if include_newest:
+        rank = torch.cumsum(newest_mask.to(torch.int32), dim=0) - 1
+        budget = cfg.max_submap_points - proc_count
+        keep = newest_mask & (rank < budget)
+        extra = moments_abs(newest_xy, keep, frame_anchor, nx, ny, res)
+    grid, in_range = window_grid_from_lattice(
+        mom, mom_anchor, B, B, frame_anchor, nx, ny, res,
+        extra=extra, min_pts=cfg.ndt_min_points_per_cell,
+    )
+    return _register_with_grid(
+        cfg, grid, scan_xy, scan_mask, odo_pose, odo_motion, pred_pose,
+        last_pose, last_cov, local_xy, local_mask,
+        grid_ok=in_range.to(torch.float32), timer=timer,
+    )
+
+
+def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
+                        odo_motion, pred_pose, last_pose, last_cov,
+                        local_xy, local_mask, grid_ok,
+                        timer: Optional[StageTimer] = None) -> FrameResult:
+    """The tail both registration steps share: source downsample,
+    compact table, align, fitness, gate + fuse, map-frame points."""
+    mark = timer.mark if timer is not None else (lambda name: None)
     mark("grid")
 
     # --- source downsample, compact table
@@ -170,6 +236,7 @@ def _registration_step(cfg: SlamConfig, scan_xy, scan_mask, odo_pose,
         est_pose=est_pose, fused_pose=fused, cov=cov, cost=cost,
         successful=accept, iterations=res.iterations, matched=res.matched,
         global_xy=g, error_pose=error_pose, trans_probability=trans_prob,
+        grid_ok=grid_ok,
     )
 
 
@@ -180,9 +247,6 @@ class FrontEnd:
     def __init__(self, cfg: SlamConfig, device):
         if cfg.loop_enable:
             raise NotImplementedError("loop closure is not ported yet")
-        if cfg.ndt_incremental_grid == 1:
-            raise NotImplementedError(
-                "the incremental moment lattice is not ported yet")
         if cfg.pipeline_depth > 0:
             raise NotImplementedError(
                 "the pipelined front end is not ported yet")
@@ -197,6 +261,18 @@ class FrontEnd:
         # device-resident carries (None: take the host copy)
         self._last_pose_dev: Optional[torch.Tensor] = None
         self._prev_odo_dev: Optional[torch.Tensor] = None
+        self.init_pose: Optional[np.ndarray] = None
+        # the native resampler gives the numpy one's points bit for bit
+        # (tests/test_torch_io.py) and is taken where the library loads
+        self.resampler = "native" if native.available() else "numpy"
+        self._resample = (native.resample_points if native.available()
+                          else resample_points_np)
+        self.incremental_grid = self.pcmap.incremental_grid
+        # escape hatch of the incremental grid: route the next
+        # dispatched frame through the full rebuild (set when a frame's
+        # window escaped the lattice; n_grid_fallbacks counts them)
+        self._force_full_grid = False
+        self.n_grid_fallbacks = 0
         self.pose_history: list[np.ndarray] = []
         self.cov_history: list[np.ndarray] = []
         self.metrics: list[dict] = []
@@ -212,7 +288,7 @@ class FrontEnd:
         if sid < cfg.start_frame:
             return {"sid": sid, "skipped": True}
 
-        rs = resample_points_np(
+        rs = self._resample(
             scan_xy_local, cfg.resample_space, cfg.resample_space_thre
         )
         odo = np.asarray(odo_pose_deg, dtype=np.float32)
@@ -222,10 +298,11 @@ class FrontEnd:
 
         if self.cnt == 0:
             # bootstrap: the first scan enters the map at its odometry
+            self.init_pose = odo.copy()
             cov = np.zeros((3, 3), dtype=np.float32)
             g = pose2.global_points(odo_dev, scan.xy)
             g = torch.where(scan.mask[:, None], g, PAD_COORD)
-            self._grow_map(PointBuffer(g, scan.mask), odo)
+            self._grow_map(PointBuffer(g, scan.mask), odo, rs)
             self.last_cov = torch.zeros((3, 3), dtype=torch.float32,
                                         device=self.device)
             self.prev_odo = odo
@@ -248,24 +325,58 @@ class FrontEnd:
             self._last_pose_dev if self._last_pose_dev is not None
             else torch.from_numpy(self.pcmap.get_last_pose()).to(self.device)
         )
-        out = _registration_step(
+        out = self._run_step(scan, odo_dev, prev_odo_dev, last_pose_dev,
+                             local)
+        small = out.small().cpu().numpy()   # the frame's one fetch
+        self.timer.mark("fetch")
+        if not small[23] > 0.0:
+            # the window escaped the lattice: redo this frame through
+            # the full rebuild (a second fetch)
+            self.n_grid_fallbacks += 1
+            self._force_full_grid = True
+            out = self._run_step(scan, odo_dev, prev_odo_dev, last_pose_dev,
+                                 local)
+            small = out.small().cpu().numpy()
+            self.timer.mark("fetch")
+        self.timer.resolve()
+        return self._finish_frame(out, small, scan, rs, odo, odo_dev, sid)
+
+    def _run_step(self, scan: PointBuffer, odo_dev, prev_odo_dev,
+                  last_pose_dev, local: PointBuffer) -> FrameResult:
+        """The frame's registration: against the moment lattice when the
+        incremental grid is on, else (and for the one frame after an
+        escape, which re-arms the lattice path) against a full
+        rebuild."""
+        cfg = self.cfg
+        if self.incremental_grid and not self._force_full_grid:
+            mom, anchor = self.pcmap.mom_state()
+            newest = self.pcmap.newest_raw()
+            include_newest = bool(cfg.remove_moving and newest is not None)
+            if newest is None:
+                newest = scan  # unused (include_newest False)
+            return _registration_step_inc(
+                cfg, scan.xy, scan.mask, odo_dev, prev_odo_dev,
+                last_pose_dev, self.last_cov, local.xy, local.mask,
+                mom, anchor, newest.xy, newest.mask,
+                self.pcmap.submaps[-1].proc_count, include_newest,
+                timer=self.timer,
+            )
+        self._force_full_grid = False
+        return _registration_step(
             cfg, scan.xy, scan.mask, odo_dev, prev_odo_dev, last_pose_dev,
             self.last_cov, local.xy, local.mask, timer=self.timer,
         )
-        small = out.small().cpu().numpy()   # the frame's one fetch
-        self.timer.mark("fetch")
-        self.timer.resolve()
-        return self._finish_frame(out, small, scan, odo, odo_dev, sid)
 
     def _finish_frame(self, out: FrameResult, small: np.ndarray,
-                      scan: PointBuffer, odo: np.ndarray, odo_dev,
-                      sid: int) -> dict:
+                      scan: PointBuffer, rs_local: np.ndarray,
+                      odo: np.ndarray, odo_dev, sid: int) -> dict:
         fused = small[0:3].copy()
         cov = small[3:12].reshape(3, 3).copy()
         self.last_cov = out.cov
         self._last_pose_dev = out.fused_pose
         self._prev_odo_dev = odo_dev
-        self._grow_map(PointBuffer(out.global_xy, scan.mask), fused)
+        self._grow_map(PointBuffer(out.global_xy, scan.mask), fused,
+                       rs_local)
         self.prev_odo = odo
         self.cnt += 1
         self.timer.mark("map")
@@ -283,10 +394,13 @@ class FrontEnd:
         self._record(fused, cov, rec)
         return rec
 
-    def _grow_map(self, scan_map_frame: PointBuffer, fused_pose: np.ndarray):
+    def _grow_map(self, scan_map_frame: PointBuffer, fused_pose: np.ndarray,
+                  rs_local: np.ndarray):
         self.pcmap.add_pose(fused_pose)
         self.pcmap.add_points(scan_map_frame)
         self.pcmap.set_last_pose(fused_pose)
+        self.pcmap.set_last_scan(scan_map_frame)
+        self.pcmap.record_local_scan(rs_local)
 
     def _record(self, fused, cov, rec):
         self.pose_history.append(np.asarray(fused, dtype=np.float32))

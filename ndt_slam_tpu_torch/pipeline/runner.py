@@ -1,7 +1,7 @@
 """Host loop over a log (port of `ndt_slam_tpu.pipeline.runner.run_slam`,
-synchronous, without checkpoint, profile, pipelined or viz options):
-feed frames into the FrontEnd, then write the pose files and the global
-and per-submap PCD maps."""
+synchronous, without the profile, pipelined, mesh or viz options): feed
+frames into the FrontEnd, save and resume checkpoints, then write the
+pose files and the global and per-submap PCD maps."""
 
 from __future__ import annotations
 
@@ -15,6 +15,9 @@ from ndt_slam_tpu_torch.io.traj import (
     save_poses_full, save_poses_reference_format,
 )
 from ndt_slam_tpu_torch.metrics import JsonlWriter
+from ndt_slam_tpu_torch.pipeline.checkpoint import (
+    load_checkpoint, save_checkpoint,
+)
 from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
 
 
@@ -25,12 +28,31 @@ def run_slam(
     out_dir: Optional[str] = None,
     metrics_path: Optional[str] = None,
     verbose: bool = False,
+    checkpoint_path: Optional[str] = None,
+    checkpoint_every: int = 0,
+    resume: bool = False,
+    checkpoint_save: bool = True,
 ) -> FrontEnd:
     """Run the pipeline on `device` over frames (objects with .odo_pose
     and .scan_xy, e.g. io.carmen.LogFrame): stop after cfg.end_frame
-    frames, skip frames below cfg.start_frame."""
-    fe = FrontEnd(cfg, device)
-    jl = JsonlWriter(metrics_path)
+    frames, skip frames below cfg.start_frame.
+
+    With `checkpoint_path` the complete state is saved every
+    `checkpoint_every` frames (if not 0) and at the end, unless
+    `checkpoint_save` is false; with `resume` an existing checkpoint is
+    loaded, the prefix of `frames` it covers is skipped and the metrics
+    file is appended to: the run resumes exactly."""
+    resume_skip = 0
+    if resume and checkpoint_path and os.path.exists(checkpoint_path):
+        fe = load_checkpoint(checkpoint_path, device, cfg)
+        resume_skip = fe.cnt
+        if verbose:
+            print(f"[runner] resumed from {checkpoint_path} "
+                  f"(frames processed: {resume_skip})")
+    else:
+        fe = FrontEnd(cfg, device)
+    # truncating on resume would lose the records before the checkpoint
+    jl = JsonlWriter(metrics_path, append=resume_skip > 0)
     t0 = time.perf_counter()
     n = 0
     try:
@@ -42,16 +64,25 @@ def run_slam(
                 sid = getattr(fr, "stamp", cnt - 1)
             if sid < cfg.start_frame:
                 continue
+            # fe.cnt counts only frames past start_frame
+            if n < resume_skip:
+                n += 1
+                continue
             rec = fe.process(fr.scan_xy, fr.odo_pose, sid=sid)
             rec["wall_s"] = time.perf_counter() - t0
             jl.write(rec)
             n += 1
+            if checkpoint_path and checkpoint_every and checkpoint_save \
+                    and n % checkpoint_every == 0:
+                save_checkpoint(fe, checkpoint_path)
             if verbose and cnt % 50 == 0:
                 print(f"[runner] frame {cnt} cost={rec.get('cost', 0):.4f} "
                       f"ok={rec.get('successful')}")
     finally:
         jl.close()
     fe.finalize()
+    if checkpoint_path and checkpoint_save and n > resume_skip:
+        save_checkpoint(fe, checkpoint_path)
 
     if out_dir is not None:
         os.makedirs(out_dir, exist_ok=True)

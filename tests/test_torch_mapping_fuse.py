@@ -29,7 +29,7 @@ from ndt_slam_tpu.mapping.pointcloud_map import (
 )
 from ndt_slam_tpu.mapping.voxel import voxel_filter as j_voxel_filter
 
-from ndt_slam_tpu_torch.config import SlamConfig
+from ndt_slam_tpu_torch.config import LATTICE_AUTO_ON_CUDA, SlamConfig
 from ndt_slam_tpu_torch.core import pose2
 from ndt_slam_tpu_torch.core.points import (
     PointBuffer, concat_buffers, pad_points,
@@ -83,7 +83,17 @@ def test_config_round_trips_jax_dict():
         [f.name for f in dataclasses.fields(JSlamConfig)]
     with pytest.raises(ValueError, match="unknown config keys"):
         SlamConfig.from_dict({"no_such_key": 1})
-    assert not cfg.resolved_ndt_incremental_grid
+    assert not cfg.resolved_ndt_incremental_grid("cpu")
+    assert cfg.resolved_ndt_incremental_grid("cuda") is LATTICE_AUTO_ON_CUDA
+    assert cfg.replace(ndt_incremental_grid=1) \
+        .resolved_ndt_incremental_grid("cpu")
+    assert not cfg.replace(ndt_incremental_grid=1, ndt_target_filtered=True) \
+        .resolved_ndt_incremental_grid("cuda")
+    for kw in (dict(), dict(grid_mom_cells=100), dict(grid_mom_cells=40),
+               dict(submap_sep_thre=3.3, ndt_resolution=0.25)):
+        assert cfg.replace(**kw).resolved_grid_mom_cells == \
+            JSlamConfig.small(**kw).resolved_grid_mom_cells
+    assert SlamConfig().resolved_grid_mom_cells == 286
     assert cfg.resolved_pipeline_depth == 0
     assert cfg.resolved_ndt_engine == "compact"
     with pytest.raises(ValueError):

@@ -23,6 +23,7 @@ from ndt_slam_tpu_torch import convert
 from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.io.carmen import read_carmen_gt, read_carmen_log
 from ndt_slam_tpu_torch.metrics import ate_rmse
+from ndt_slam_tpu_torch.pipeline.checkpoint import load_checkpoint
 from ndt_slam_tpu_torch.pipeline.runner import run_slam
 
 torch.set_num_threads(2)
@@ -119,7 +120,7 @@ def test_slice_outputs_written(runs):
 def test_jax_checkpoint_resumes_in_port(runs):
     """Map and carries of JAX frame 8, continued by the port: frame 9
     agrees with JAX's frame 9."""
-    fe = convert.load_checkpoint(runs["ckpt"], "cpu")
+    fe = load_checkpoint(runs["ckpt"], "cpu")
     assert fe.cnt == CKPT_AFTER
     assert len(fe.pose_history) == CKPT_AFTER
     fr = runs["frames"][CKPT_AFTER]
@@ -154,6 +155,7 @@ def test_cli_runs_on_cpu(tmp_path):
          "--config", str(cfg), "--gt", GT, "--end-frame", "4",
          "--device", "cpu"],
         capture_output=True, text=True, timeout=300,
+        env=dict(os.environ, OMP_NUM_THREADS="2"),
     )
     assert proc.returncode == 0, proc.stderr
     summary = json.loads(proc.stdout.strip().splitlines()[-1])
