@@ -29,7 +29,8 @@ Phases, one line each (any failure exits non-zero):
      lattice; ATE against the ground truth, accept rate, launch counts,
      outputs, no window escaped the lattice; [lattice] at frames 40 and
      300 the window grid cut from the lattice against from-scratch
-     builds over the same target buffer; [fetch] the device-to-host
+     builds over the same target buffer, and what each piece of the two
+     grid paths costs at frame 300; [fetch] the device-to-host
      copies a frame on both paths; [escape] 30 frames with a lattice no
      wider than the window; [reference] the first 15 frames at the small
      capacities on the card and on the CPU twins, lattice on, within
@@ -97,11 +98,9 @@ def _time_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
-def _profile_calls(fn, calls: int = 10):
-    """(device operations, launches of this repository's kernels, their
-    device microseconds, the same by kernel) of one fn() call, from a
-    torch.profiler trace of `calls` calls: every kernel, copy and memset
-    the card ran counts as one device operation."""
+def _device_events(fn, calls: int = 10):
+    """The device events (every kernel, copy and memset the card ran) of
+    `calls` calls of fn(), from a torch.profiler trace."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -115,6 +114,14 @@ def _profile_calls(fn, calls: int = 10):
         torch.cuda.synchronize()
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     _require(dev, "the profiler recorded device events")
+    return dev
+
+
+def _profile_calls(fn, calls: int = 10):
+    """(device operations, launches of this repository's kernels, their
+    device microseconds, the same by kernel) of one fn() call: every
+    device event counts as one device operation."""
+    dev = _device_events(fn, calls)
     own = {}
     for e in dev:
         for k in OWN_KERNELS:
@@ -639,8 +646,53 @@ def _check_lattice(cfg, frames, device, at=(40, 300)):
             _require(n_valid > 20 and differ <= 0.01 * n_valid,
                      f"[lattice] frame {i}: {differ} of {n_valid} cells "
                      f"differ from the window-relative build")
+            if i == max(at) and device.type == "cuda":
+                _time_lattice_pieces(cfg, tgt, newest, keep, mom, anchor, fa,
+                                     pred, fe.pcmap)
         fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
     _require(fe.n_grid_fallbacks == 0, "[lattice] no window escaped")
+
+
+def _time_lattice_pieces(cfg, tgt, newest, keep, mom, anchor, fa, pred,
+                         pcmap):
+    """What each piece of the two grid paths costs on the card at one
+    frame's state: milliseconds of a call from CUDA events (median of
+    20; the host's launches included), and from the profiler the device
+    operations a call and their summed device time."""
+    from ndt_slam_tpu_torch.core.points import PointBuffer
+    from ndt_slam_tpu_torch.mapping.pointcloud_map import _rebuild_mom
+    from ndt_slam_tpu_torch.ndt import grid as G
+
+    nx, ny, res = cfg.grid_cells_x, cfg.grid_cells_y, cfg.ndt_resolution
+    B, min_pts = cfg.resolved_grid_mom_cells, cfg.ndt_min_points_per_cell
+    extra = G.moments_abs(newest.xy, keep, fa, nx, ny, res)
+    has_prev = len(pcmap.submaps) >= 2
+    prev = (pcmap.submaps[-2].final_cloud if has_prev
+            else PointBuffer.empty(1, tgt.xy.device))
+    pieces = {
+        "full rebuild: build_grid over the 131072-slot target":
+            lambda: G.build_grid(tgt.xy, tgt.mask, pred[:2], nx, ny, res,
+                                 min_pts=min_pts),
+        "lattice: moments_abs of a 2048-slot scan into the window":
+            lambda: G.moments_abs(newest.xy, keep, fa, nx, ny, res),
+        "lattice: window_grid_from_lattice (gather + finalize)":
+            lambda: G.window_grid_from_lattice(
+                mom, anchor, B, B, fa, nx, ny, res, extra=extra,
+                min_pts=min_pts),
+        f"lattice, map stage: mom + moments_abs of a scan into {B}x{B}":
+            lambda: mom + G.moments_abs(newest.xy, keep, anchor, B, B, res),
+        "lattice, after a submap close: _rebuild_mom (65536 + 65536 slots)":
+            lambda: _rebuild_mom(prev, pcmap.submaps[-1].proc, anchor,
+                                 mom_cells=B, grid_res=res,
+                                 has_prev=has_prev),
+    }
+    for name, fn in pieces.items():
+        ms = _time_ms(fn)
+        dev = _device_events(fn)
+        print(f"[lattice] {name}: {ms:.4f} ms a call, {len(dev) / 10:g} "
+              f"device operations, "
+              f"{sum(e.time_range.elapsed_us() for e in dev) / 10:.1f} us "
+              f"of device time", flush=True)
 
 
 def _d2h_copies_per_frame(cfg, frames, device, warm=40, window=20):
