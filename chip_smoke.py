@@ -24,9 +24,10 @@ Phases, one line each (any failure exits non-zero):
      beside kernel 3;
   4. main paths: `run_slam` over tests/data/office_loop.clf at the
      default capacities on the card, launch counts set to 0 before each:
-     [main] the first 150 frames with the grid rebuilt in full every
-     frame, [main-inc] all 500 frames against the incremental moment
-     lattice; ATE against the ground truth, accept rate, launch counts,
+     [main] all 500 frames with the grid rebuilt in full every frame
+     (what ndt_incremental_grid = -1 runs on cuda), [main-inc] all 500
+     frames against the incremental moment lattice; ATE against the
+     ground truth, accept rate, launch counts,
      outputs, no window escaped the lattice; [lattice] at frames 40 and
      300 the window grid cut from the lattice against from-scratch
      builds over the same target buffer, and what each piece of the two
@@ -35,10 +36,24 @@ Phases, one line each (any failure exits non-zero):
      wider than the window; [reference] the first 15 frames at the small
      capacities on the card and on the CPU twins, lattice on, within
      0.05 m and 0.3 deg of each other;
-  5. [resume] frames 0-29 with a checkpoint after frame 14 and the run
-     continued from the loaded file, and [determinism] frames 0-29
-     twice, lattice on: poses bitwise equal, the loaded lattice bitwise
-     equal to the saved one.
+  5. [verify] the loop-closure verifier at the default config: the
+     keyframes of the [main] run (every loop_keyframe_skip frames, with
+     the chain model's position variance), the first check frame whose
+     candidates are loop_max_candidates keyframes a loop apart, one row
+     of the initial guesses pushed 0.5 m / 5 deg off; launch counts set
+     to 0 before the verify and read after it; card against the CPU
+     twins (accepted equal, relative pose within 0.05 m / 0.3 deg), the
+     pushed row recovered; ms, launches, device operations and
+     device-to-host copies a verify. Then the kernel variants it runs
+     against their twins at its shapes: the window kernels' grid axis
+     (4 grids, 240 poses; with one grid bit for bit against the
+     single-grid call), the nearest-neighbour kernel's batch axis and
+     argmin form ([4, 2048] against [4, 2048], and at full load; ties
+     and NaN), each with its time, bound and library call;
+  6. [determinism] frames 0-29 twice on each grid path, and [resume]
+     frames 0-29 with a checkpoint after frame 14 and the run continued
+     from the loaded file, lattice on: poses bitwise equal, the loaded
+     lattice bitwise equal to the saved one.
 The last line is the JSON result; the kernels' JSON line and the
 card's name and power limit come just before it.
 """
@@ -61,10 +76,13 @@ GT = os.path.join(ROOT, "tests", "data", "office_loop.gt")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 OWN_KERNELS = ("window_kernel", "window_sum_kernel", "nn_kernel",
-               "nn_finish_kernel", "empty_kernel")
+               "nn_finish_kernel", "nn_argmin_finish_kernel", "empty_kernel")
 ATE_BOUND = 0.3            # suite.json office_default
 ACCEPT_BOUND = 0.95
 REAL_FRAME = 40            # frame whose registration feeds the checks
+DETERMINISM_FRAMES = 30
+LOOP_APART = 200           # frames between a [verify] frame and its keyframes
+PUSH = (0.5, -0.4, 5.0)    # the [verify] row pushed off: m, m, deg
 
 
 def _require(ok, what):
@@ -718,6 +736,501 @@ def _d2h_copies_per_frame(cfg, frames, device, warm=40, window=20):
     return d2h / window, len(dev) / window, fe.n_grid_fallbacks
 
 
+def _pos_var(cov_deg) -> float:
+    """Largest eigenvalue of a pose covariance's 2x2 position block: the
+    drift the JAX back end adds up for the candidate radius
+    (ndt_slam_tpu/graph/backend.py, _pos_var)."""
+    a, b, c = float(cov_deg[0, 0]), float(cov_deg[0, 1]), float(cov_deg[1, 1])
+    h = 0.5 * (a + c)
+    return max(0.0, h + float(np.sqrt(max(0.0, (0.5 * (a - c)) ** 2
+                                              + b * b))))
+
+
+def _verify_inputs(cfg, frames, gt, fe, device):
+    """The [verify] batch from the [main] run, as the JAX back end forms
+    it: a keyframe every loop_keyframe_skip frames with the cumulative
+    position variance, candidates every loop_check_skip frames with the
+    drift-aware radius. Of the check frames whose candidates are
+    loop_max_candidates keyframes at least LOOP_APART frames old, the
+    one nearest to its first candidate (the revisit with the most
+    overlap); without one, the frame with the most candidates, the rest
+    masked rows. The initial guesses are the fused trajectory's relative
+    poses, row 0 pushed by PUSH."""
+    import torch
+    from ndt_slam_tpu_torch.core import pose2
+    from ndt_slam_tpu_torch.core.points import PAD_COORD, pad_points
+    from ndt_slam_tpu_torch.graph import KeyframeStore, relative_pose_deg
+
+    def scan(i):
+        rs = fe._resample(frames[i].scan_xy, cfg.resample_space,
+                          cfg.resample_space_thre)
+        return pad_points(rs, cfg.max_scan_points, device)
+
+    store = KeyframeStore(cfg)
+    cum, loops, most = 0.0, [], (None, [])
+    for i, pose in enumerate(fe.pose_history):
+        cum += _pos_var(fe.cov_history[i])
+        if i % max(1, cfg.loop_keyframe_skip) == 0:
+            store.add(i, pose, scan(i), pos_var=cum)
+        if i % max(1, cfg.loop_check_skip) == 0:
+            cand = store.candidates(pose, i,
+                                    max_candidates=cfg.loop_max_candidates,
+                                    cur_pos_var=cum)
+            if len(cand) == cfg.loop_max_candidates and \
+                    min(i - store.sids[k] for k in cand) >= LOOP_APART:
+                near = store.poses_deg[cand[0]][:2] - pose[:2]
+                loops.append((float(np.hypot(*near)), i, cand))
+            if len(cand) > len(most[1]):
+                most = (i, cand)
+    cur, cand = min(loops)[1:] if loops else most
+    _require(cur is not None, "[verify] office_loop offers a candidate")
+    b = cfg.loop_max_candidates
+    src = scan(cur)
+    pad = (torch.full_like(src.xy, PAD_COORD), torch.zeros_like(src.mask))
+    tgt_xy = torch.stack([store.scan_xy[k] for k in cand]
+                         + [pad[0]] * (b - len(cand)))
+    tgt_mask = torch.stack([store.scan_mask[k] for k in cand]
+                           + [pad[1]] * (b - len(cand)))
+    cur_pose = torch.from_numpy(fe.pose_history[cur])
+    rel = torch.zeros((b, 3))
+    rel_gt = torch.zeros((b, 3))
+    for r, k in enumerate(cand):
+        rel[r] = relative_pose_deg(torch.from_numpy(store.poses_deg[k]),
+                                   cur_pose)
+        rel_gt[r] = relative_pose_deg(torch.from_numpy(gt[store.sids[k]]),
+                                      torch.from_numpy(gt[cur]))
+    init = pose2.pose_deg_to_rad(rel)
+    init[0] += torch.tensor([PUSH[0], PUSH[1], np.deg2rad(PUSH[2])])
+    return dict(cur=cur, sids=[store.sids[k] for k in cand], src=src,
+                tgt_xy=tgt_xy, tgt_mask=tgt_mask, init=init.to(device),
+                rel_gt=pose2.pose_deg_to_rad(rel_gt), n_real=len(cand),
+                keyframes=len(store))
+
+
+def _pose_gap(a, b):
+    """(max metres, max degrees) between [B,3] rad poses."""
+    a, b = a.cpu().numpy(), b.cpu().numpy()
+    dxy = float(np.abs(a[:, :2] - b[:, :2]).max())
+    dth = float(np.rad2deg(np.abs((a[:, 2] - b[:, 2] + np.pi) % (2 * np.pi)
+                                  - np.pi)).max())
+    return dxy, dth
+
+
+def _check_verify(cfg, vin, device):
+    """[verify]: the verifier on the card (its launch counts set to 0
+    just before the call and read just after), against the CPU twins,
+    the pushed row against the unpushed guesses, and what a verify
+    costs. Returns the wrapper launch counts of the one verify."""
+    import torch
+    from ndt_slam_tpu_torch.graph import pack_verify_out, verify_candidates
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    src, tgt_xy, tgt_mask, init = (vin[k] for k in
+                                   ("src", "tgt_xy", "tgt_mask", "init"))
+    unpushed = init.clone()
+    unpushed[0] -= torch.tensor([PUSH[0], PUSH[1], np.deg2rad(PUSH[2])],
+                                device=device)
+
+    def verify(guess):
+        return verify_candidates(cfg, src.xy, src.mask, tgt_xy, tgt_mask,
+                                 guess)
+
+    ref = verify(unpushed)
+    kernels.reset_launch_counts()
+    out = verify(init)
+    torch.cuda.synchronize()
+    counts = kernels.wrapper_launch_counts()
+    t0 = time.perf_counter()
+    cpu = verify_candidates(cfg, src.xy.cpu(), src.mask.cpu(), tgt_xy.cpu(),
+                            tgt_mask.cpu(), init.cpu())
+    cpu_s = time.perf_counter() - t0
+    acc, acc_cpu = out.accepted.cpu(), cpu.accepted
+    dxy, dth = _pose_gap(out.rel_pose_rad, cpu.rel_pose_rad)
+    rxy, rth = _pose_gap(out.rel_pose_rad[:1], ref.rel_pose_rad[:1])
+    ok = acc.numpy().astype(bool)
+    gxy, gth = (_pose_gap(out.rel_pose_rad.cpu()[ok], vin["rel_gt"][ok])
+                if ok.any() else (float("nan"), float("nan")))
+    real = vin["n_real"]
+    ixy, ith = _pose_gap(unpushed.cpu()[:real], vin["rel_gt"][:real])
+    print(f"[verify] frame {vin['cur']} against keyframes {vin['sids']} "
+          f"({vin['n_real']} real of {cfg.loop_max_candidates} rows, "
+          f"{vin['keyframes']} keyframes stored); accepted {acc.tolist()} "
+          f"(CPU twins {acc_cpu.tolist()}); card vs CPU twins max {dxy:.3g} "
+          f"m, {dth:.3g} deg; row 0 pushed {PUSH[0]} m, {PUSH[1]} m, "
+          f"{PUSH[2]} deg: {rxy:.3g} m, {rth:.3g} deg from the unpushed "
+          f"verify; the fused trajectory's guesses within {ixy:.3g} m, "
+          f"{ith:.3g} deg of the ground truth's relative poses, the "
+          f"accepted rows within {gxy:.3g} m, {gth:.3g} deg; cost "
+          f"{out.cost.cpu().numpy().round(5).tolist()}, "
+          f"overlap {out.overlap.cpu().numpy().round(4).tolist()}, "
+          f"target overlap {out.overlap_tgt.cpu().numpy().round(4).tolist()}"
+          f"; the CPU twins took {cpu_s:.2f} s", flush=True)
+    _require(torch.equal(acc, acc_cpu), "[verify] accepted equal on the "
+                                         "card and the CPU twins")
+    _require(dxy <= 0.05 and dth <= 0.3, "[verify] relative poses within "
+                                         "0.05 m and 0.3 deg of the CPU's")
+    _require(bool(acc[0]) and rxy <= 0.05 and rth <= 0.3,
+             "[verify] the pushed row recovered and accepted")
+    _require(int(acc[vin["n_real"]:].sum()) == 0,
+             "[verify] the masked rows are rejected")
+    for name in ("ndt_score_grad_hess_grids", "ndt_scores_grids",
+                 "nn_argmin", "nn_sq_dists_batched"):
+        _require(counts[name] > 0, f"[verify] {name} launched")
+
+    def fetched():
+        return pack_verify_out(verify(init)).cpu()
+
+    walls = []
+    for rep in range(23):
+        t0 = time.perf_counter()
+        fetched()
+        if rep >= 3:
+            walls.append((time.perf_counter() - t0) * 1e3)
+    dev = _device_events(fetched, calls=5)
+    seen = sum(any(k in e.name for k in OWN_KERNELS) for e in dev)
+    launched = 10 * sum(counts.values())
+    _require(seen == launched, f"[verify] the profiler saw {seen} of the "
+                               f"{launched} kernel launches of 5 verifies")
+    d2h = sum("memcpy dtoh" in e.name.lower() for e in dev) / 5
+    own_us = sum(e.time_range.elapsed_us() for e in dev
+                 if any(k in e.name for k in OWN_KERNELS)) / 5
+    all_us = sum(e.time_range.elapsed_us() for e in dev) / 5
+    wall = statistics.median(walls)
+    per = {k: v for k, v in counts.items() if v}
+    print(f"[verify] a verify with its one fetch: {wall:.2f} ms wall "
+          f"(median of 20, range {min(walls):.2f}-{max(walls):.2f}); "
+          f"launching calls {per}; {len(dev) / 5:g} device operations, "
+          f"{d2h:g} device-to-host copies; device time {all_us / 1e3:.3f} "
+          f"ms, of it this repository's kernels {own_us / 1e3:.3f} ms "
+          f"({100 * own_us / 1e3 / wall:.1f} % of the wall time)",
+          flush=True)
+    return counts
+
+
+def _variant_rows(cfg, vin, syn):
+    """The loop-closure variants against their twins at the verifier's
+    shapes, timed beside their bounds and library calls; returns their
+    JSON rows (launch counts filled in by the caller)."""
+    import torch
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.ndt.compact import (
+        compact_grid, stack_grids, window_rows,
+    )
+    from ndt_slam_tpu_torch.ndt.fitness import nn_argmin, nn_sq_dists
+    from ndt_slam_tpu_torch.ndt.grid import build_grid
+    from ndt_slam_tpu_torch.ndt.icp import _transform
+    from ndt_slam_tpu_torch.ndt.score import gauss_constants
+
+    src, tgt_xy, tgt_mask, init = (vin[k] for k in
+                                   ("src", "tgt_xy", "tgt_mask", "init"))
+    device = init.device
+    b, r = tgt_xy.shape[0], cfg.ndt_neighborhood
+    mult, res = cfg.loop_stage_mults[0], cfg.ndt_resolution
+    nxs, nys = max(16, cfg.grid_cells_x // mult), \
+        max(16, cfg.grid_cells_y // mult)
+    cgs = [compact_grid(build_grid(tgt_xy[k], tgt_mask[k], init[k, :2], nxs,
+                                   nys, res * mult,
+                                   min_pts=cfg.ndt_min_points_per_cell),
+                        cfg.ndt_max_active_cells) for k in range(b)]
+    gs = stack_grids(cgs)
+    d1, d2 = gauss_constants(res * mult, cfg.ndt_outlier_ratio)
+    # the coarse stage's rows (starts half a coarse cell apart) and their
+    # 12 line-search candidates each
+    h = res * mult * 0.5
+    offs = torch.tensor([[0, 0, 0], [h, 0, 0], [-h, 0, 0], [0, h, 0],
+                         [0, -h, 0]], device=device)[:cfg.loop_coarse_starts]
+    starts = (init[:, None, :] + offs[None]).reshape(-1, 3)
+    gi_rows = torch.arange(b, dtype=torch.int32,
+                           device=device).repeat_interleave(offs.shape[0])
+    gen = torch.Generator(device=device).manual_seed(3)
+    steps = (torch.rand((starts.shape[0], 12, 3), generator=gen,
+                        device=device) - 0.5) * torch.tensor(
+                            [0.4, 0.4, 0.05], device=device)
+    cand = (starts[:, None, :] + steps).reshape(-1, 3)
+    gi_cand = gi_rows.repeat_interleave(12)
+    err = {}
+
+    # grid axis: 240 poses on 4 grids against the gather twin
+    E, g, H, m = kernels.ndt_score_grad_hess_grids(cand, gi_cand, src.xy,
+                                                   src.mask, gs, d1, d2, r)
+    sc = kernels.ndt_scores_grids(cand, gi_cand, src.xy, src.mask, gs, d1,
+                                  d2, r)
+    want = window_rows(cand, gi_cand, src.xy, src.mask, gs, d1, d2, r)
+    torch.cuda.synchronize()
+    _require(torch.equal(m, want[:, 1]) and float(m.sum()) > 1000,
+             "grid axis: matched pairs equal to the twin's")
+    np.testing.assert_allclose(E.cpu().numpy(), want[:, 0].cpu().numpy(),
+                               rtol=1e-5)
+    np.testing.assert_allclose(g.cpu().numpy(), want[:, 2:5].cpu().numpy(),
+                               rtol=1e-4, atol=1e-3)
+    np.testing.assert_allclose(H.reshape(-1, 9).cpu().numpy(),
+                               want[:, 5:14].cpu().numpy(), rtol=1e-3,
+                               atol=0.05)
+    np.testing.assert_allclose(sc.cpu().numpy(), want[:, 0].cpu().numpy(),
+                               rtol=1e-5)
+    err["sgh_grids"] = max((E - want[:, 0]).abs().max().item(),
+                           (g - want[:, 2:5]).abs().max().item(),
+                           (H.reshape(-1, 9) - want[:, 5:14]).abs().max()
+                           .item())
+    err["score_many_grids"] = (sc - want[:, 0]).abs().max().item()
+    # one grid: the single-grid call's bits
+    zeros = torch.zeros(12, dtype=torch.int32, device=device)
+    one = stack_grids(cgs[:1])
+    got1 = kernels.ndt_score_grad_hess_grids(cand[:12], zeros, src.xy,
+                                             src.mask, one, d1, d2, r)
+    want1 = kernels.ndt_score_grad_hess(cand[:12], src.xy, src.mask, cgs[0],
+                                        d1, d2, r)
+    _require(all(torch.equal(x, y) for x, y in zip(got1, want1))
+             and torch.equal(
+                 kernels.ndt_scores_grids(cand[:12], zeros, src.xy, src.mask,
+                                          one, d1, d2, r),
+                 kernels.ndt_scores(cand[:12], src.xy, src.mask, cgs[0], d1,
+                                    d2, r)),
+             "grid axis with one grid: the single-grid call's bits")
+
+    # batch axis and argmin form: ICP's first pass and the overlap pass
+    smask = src.mask[None, :].expand(b, -1).contiguous()
+    src_w = _transform(init, src.xy)
+    src_map = torch.where(src.mask[:, None], src_w, 1.0e8)
+
+    def same(x, y):
+        return bool(((x.view(torch.int32) == y.view(torch.int32))
+                     | (torch.isnan(x) & torch.isnan(y))).all())
+
+    dup = tgt_xy.clone()
+    half = dup.shape[1] // 2
+    dup[:, half:] = dup[:, :half]
+    dup_mask = tgt_mask.clone()
+    dup_mask[:, half:] = dup_mask[:, :half]
+    bad_src = src_w.clone()
+    bad_src[1, int(torch.nonzero(src.mask)[0]), 0] = float("nan")
+    bad_tgt = tgt_xy.clone()
+    bad_tgt[2, int(torch.nonzero(tgt_mask[2])[3]), 1] = float("nan")
+    full = (syn["scan"].xy[None], syn["scan"].mask[None],
+            syn["tgt"].xy[None], syn["tgt"].mask[None])
+    cases = {
+        "ICP pass": (src_w, smask, tgt_xy, tgt_mask),
+        "overlap pass": (tgt_xy, tgt_mask, src_map, smask),
+        "ties (targets duplicated)": (src_w, smask, dup, dup_mask),
+        "NaN source": (bad_src, smask, tgt_xy, tgt_mask),
+        "NaN target": (src_w, smask, bad_tgt, tgt_mask),
+        "full load": full,
+    }
+    err["nn_argmin"] = err["nn_batched"] = 0.0
+    for case, args in cases.items():
+        d, idx = kernels.nn_argmin(*args)
+        dist = kernels.nn_sq_dists_batched(*args)
+        d0, idx0 = nn_argmin(*args)
+        torch.cuda.synchronize()
+        _require(same(d, d0) and same(dist, d0) and torch.equal(idx, idx0),
+                 f"nn argmin, {case}: distance bit for bit and index equal "
+                 f"to the twin's")
+        for k in range(args[0].shape[0]):
+            _require(same(dist[k], nn_sq_dists(*(a[k] for a in args))),
+                     f"nn batched, {case}: row {k} is the single call's")
+        fin = torch.isfinite(d0)
+        err["nn_argmin"] = max(err["nn_argmin"],
+                               (d - d0)[fin].abs().max().item())
+        err["nn_batched"] = max(err["nn_batched"],
+                                (dist - d0)[fin].abs().max().item())
+    print(f"[variants] grid axis: {cand.shape[0]} poses on {b} grids "
+          f"{nxs}x{nys} at {res * mult} m, matched {int(m.sum())} pairs "
+          f"equal to the twin's, E/grad/H at the parity bar, one grid bit "
+          f"for bit; nn batched and argmin on {len(cases)} cases "
+          f"({', '.join(cases)}): distances bit for bit, indices equal",
+          flush=True)
+
+    # times and bounds at the verifier's shapes
+    n = src.capacity
+    n_live = int(src.mask.sum())
+    m_live = tgt_mask.sum(dim=1).cpu().numpy().astype(float)
+    cells = nxs * nys
+    k_valid = sum(int(cg.valid.sum()) for cg in cgs)
+    rows_pairs = float(kernels.ndt_score_grad_hess_grids(
+        starts, gi_rows, src.xy, src.mask, gs, d1, d2, r)[3].sum())
+    cand_pairs = float(m.sum())
+    lanes = _f32_lanes()[2]
+
+    def window_bytes(poses, pairs, out_floats):
+        return (n * 9 + poses * 16 + b * 8 + min(poses * n_live * 9,
+                                                 b * cells) * 4
+                + min(pairs, k_valid) * 32 + out_floats * 4)
+
+    def nn_bytes(out_bytes):
+        return (b * 2 * n + 8 * (b * n_live + m_live.sum())
+                + out_bytes * b * n)
+
+    pair_count = n_live * m_live.sum()
+    bounds = {
+        "sgh_grids": _bound(window_bytes(starts.shape[0], rows_pairs,
+                                         16 * starts.shape[0]),
+                            starts.shape[0] * n_live * 20 + rows_pairs * 45),
+        "score_many_grids": _bound(window_bytes(cand.shape[0], cand_pairs,
+                                                cand.shape[0]),
+                                   cand.shape[0] * n_live * 20
+                                   + cand_pairs * 25),
+        # 2 sub, 2 mul, 1 add a pair, then 1 compare (batched) or 3
+        # (argmin: less, equal, index), no FMA
+        "nn_batched": _bound(nn_bytes(4), pair_count * 6, lanes),
+        "nn_argmin": _bound(nn_bytes(8), pair_count * 8, lanes),
+    }
+
+    def cdist_argmin():
+        d = torch.cdist(src_w, tgt_xy,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        return torch.where(tgt_mask[:, None, :], d, 1.0e6).argmin(dim=-1)
+
+    def cdist_min():
+        d = torch.cdist(tgt_xy, src_map,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        return torch.where(smask[:, None, :], d, 1.0e6).amin(dim=-1) ** 2
+
+    icp, ovl = cases["ICP pass"], cases["overlap pass"]
+    # the library calls compute the same functions (up to their rounding)
+    lib_idx = cdist_argmin()[..., None].expand(-1, -1, 2)
+    lib_d2 = ((src_w - tgt_xy.gather(1, lib_idx)) ** 2).sum(dim=-1)
+    np.testing.assert_allclose(lib_d2[smask].cpu().numpy(),
+                               nn_argmin(*icp)[0][smask].cpu().numpy(),
+                               rtol=1e-3, atol=1e-4)
+    np.testing.assert_allclose(cdist_min()[tgt_mask].cpu().numpy(),
+                               nn_sq_dists(*ovl)[tgt_mask].cpu().numpy(),
+                               rtol=1e-3, atol=1e-4)
+    calls = {
+        "sgh_grids": (
+            lambda: kernels.ndt_score_grad_hess_grids(
+                starts, gi_rows, src.xy, src.mask, gs, d1, d2, r),
+            lambda: window_rows(starts, gi_rows, src.xy, src.mask, gs, d1,
+                                d2, r),
+            None, "sgh", "ndt_slam_tpu/ndt/pallas_kernels.py:106",
+            "ndt_slam_tpu/graph/loop_closure.py:84-106 (vmap of align)"),
+        "score_many_grids": (
+            lambda: kernels.ndt_scores_grids(cand, gi_cand, src.xy, src.mask,
+                                             gs, d1, d2, r),
+            lambda: window_rows(cand, gi_cand, src.xy, src.mask, gs, d1, d2,
+                                r, derivs=False),
+            None, "score_many", "ndt_slam_tpu/ndt/pallas_kernels.py:213",
+            "ndt_slam_tpu/graph/loop_closure.py:84-106 (vmap of align)"),
+        "nn_batched": (
+            lambda: kernels.nn_sq_dists_batched(*ovl),
+            lambda: nn_sq_dists(*ovl), cdist_min, "nn",
+            "ndt_slam_tpu/ndt/pallas_kernels.py:303",
+            "ndt_slam_tpu/graph/loop_closure.py:126-134 (vmap of "
+            "nn_sq_dists)"),
+        "nn_argmin": (
+            lambda: kernels.nn_argmin(*icp), lambda: nn_argmin(*icp),
+            cdist_argmin, "nn", "ndt_slam_tpu/ndt/pallas_kernels.py:303",
+            "ndt_slam_tpu/ndt/icp.py:43-86 (_nn, XLA)"),
+    }
+    rows = []
+    for name, (kern, plain, lib, parent, replaces, variant_of) in \
+            calls.items():
+        p0 = _time_ms(plain)
+        k0 = _time_ms(kern)
+        k1 = _time_ms(kern)
+        p1 = _time_ms(plain)
+        ms, plain_ms = (k0 + k1) / 2, (p0 + p1) / 2
+        library_ms = None if lib is None else _time_ms(lib, reps=10)
+        ops, own, kernel_us, split = _profile_calls(kern)
+        bound_ms, bound_by = bounds[name]
+        lib_txt = "none" if library_ms is None else f"{library_ms:.4f} ms"
+        print(f"[variants] {name} (of {parent}): wrapper {ms:.4f} ms, its "
+              f"kernels alone {kernel_us:.2f} us in {own:g} launches "
+              f"{split}, {ops:g} device operations a call; bound "
+              f"{bound_ms * 1e3:.4f} us ({bound_by}); twin {plain_ms:.4f} "
+              f"ms; library call {lib_txt} (max abs err {err[name]:.3g})",
+              flush=True)
+        _require(ops == 2 and own == 2,
+                 f"{name}: {ops:g} device operations a call, {own:g} of "
+                 f"them this repository's kernels (2 and 2)")
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "ndt_slam_tpu_torch/csrc/ndt_kernels.cu",
+            "replaces": replaces, "variant_of": variant_of, "launches": 0,
+            "max_abs_err": err[name], "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "kernel_us": kernel_us,
+            "bound_us": bound_ms * 1e3, "device_ops_per_call": ops,
+        })
+    return rows
+
+
+def _loop_closure_phases(vin, syn):
+    """[variants] and [verify] in a process of their own: in one process,
+    a torch.profiler session after a large one (the frame loop's
+    [fetch], a verify) has come back with device events missing, and
+    these phases count device operations. The inputs go through a file;
+    the child's lines are printed here. Returns the variants' rows, their
+    launches those of the one verify run with the counts set to 0."""
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "loop_closure_inputs.pt")
+        torch.save({
+            **vin, "src": (vin["src"].xy, vin["src"].mask),
+            "syn_scan": (syn["scan"].xy, syn["scan"].mask),
+            "syn_tgt": (syn["tgt"].xy, syn["tgt"].mask),
+        }, path)
+        proc = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), "--loop-closure",
+             path], capture_output=True, text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(line, flush=True)
+    _require(proc.returncode == 0 and lines,
+             f"the loop-closure phases ran ({proc.returncode}): "
+             f"{proc.stderr[-4000:]}")
+    return json.loads(lines[-1])["variant_rows"]
+
+
+def _loop_closure_child(path) -> int:
+    """The child of `_loop_closure_phases`: the variants against their
+    twins and timed, then the verify, on inputs saved by the parent."""
+    import torch
+    from ndt_slam_tpu_torch.config import SlamConfig
+    from ndt_slam_tpu_torch.core.points import PointBuffer
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    if not torch.cuda.is_available():
+        return 1
+    vin = torch.load(path)
+    syn = {"scan": PointBuffer(*vin.pop("syn_scan")),
+           "tgt": PointBuffer(*vin.pop("syn_tgt"))}
+    vin["src"] = PointBuffer(*vin["src"])
+    device = vin["init"].device
+    cfg = SlamConfig()
+    kernels._load()
+    rows = _variant_rows(cfg, vin, syn)
+    counts = _check_verify(cfg, vin, device)
+    wrapper = {"sgh_grids": "ndt_score_grad_hess_grids",
+               "score_many_grids": "ndt_scores_grids",
+               "nn_batched": "nn_sq_dists_batched",
+               "nn_argmin": "nn_argmin"}
+    for row in rows:
+        row["launches"] = counts[wrapper[row["name"]]]
+    print(json.dumps({"variant_rows": rows}))
+    return 0
+
+
+def _check_determinism(frames, device, paths):
+    """[determinism] frames 0-29 twice on each grid path: poses bitwise
+    equal. Returns the poses by path."""
+    from ndt_slam_tpu_torch.pipeline.runner import run_slam
+
+    poses = {}
+    for label, cfg in paths.items():
+        short = cfg.replace(end_frame=DETERMINISM_FRAMES)
+        a = run_slam(frames, short, device).get_poses()
+        b = run_slam(frames, short, device).get_poses()
+        _require(a.shape == (DETERMINISM_FRAMES, 3)
+                 and a.tobytes() == b.tobytes(),
+                 f"[determinism] {label}: a rerun of frames 0-29 gives "
+                 f"bitwise equal poses")
+        print(f"[determinism] frames 0-29 twice, {label}: poses bitwise "
+              f"equal", flush=True)
+        poses[label] = a
+    return poses
+
+
 def main() -> int:
     import torch
 
@@ -737,6 +1250,7 @@ def main() -> int:
     from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
     from ndt_slam_tpu_torch.pipeline.runner import run_slam
 
+    t_start = time.perf_counter()
     smi = _nvidia_smi()
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -764,22 +1278,22 @@ def main() -> int:
           f"resamples with the {FrontEnd(cfg, device).resampler} resampler; "
           f"ndt_incremental_grid = -1 resolves to "
           f"{cfg.resolved_ndt_incremental_grid('cuda')} on cuda", flush=True)
-    rows = _check_kernels(cfg, _scenes(device, full, frames))
+    scenes = _scenes(device, full, frames)
+    rows = _check_kernels(cfg, scenes)
     event_us, device_us = _empty_launch_us()
     print(f"[launch] an empty kernel: {event_us:.2f} us from before its "
           f"launch to its end (CUDA events, median of 50), {device_us:.2f} "
           f"us of device time (profiler)", flush=True)
 
-    # 4. the main paths at the default capacities: the full rebuild (the
-    # earlier path, cut to 150 frames) and the incremental lattice
-    _, counts_full = _run_main_path("main", frames,  gt,
-                                    full.replace(end_frame=150), device)
+    # 4. the main paths at the default capacities, every frame: the full
+    # rebuild (what -1 resolves to on cuda) and the incremental lattice
+    fe_full, counts_full = _run_main_path("main", frames, gt, full, device)
     fe, counts = _run_main_path("main-inc", frames, gt, inc, device)
     _require(fe.incremental_grid and fe.n_grid_fallbacks == 0,
              "[main-inc] ran on the lattice and no window escaped it")
     for row in rows:
-        row["launches"] = counts[row["name"]]
-        row["launches_full_rebuild_150_frames"] = counts_full[row["name"]]
+        row["launches"] = counts_full[row["name"]]
+        row["launches_lattice"] = counts[row["name"]]
 
     _check_lattice(inc, frames, device)
 
@@ -822,16 +1336,17 @@ def main() -> int:
     _require(on_card.shape == (15, 3) and dxy <= 0.05 and dth <= 0.3,
              "card and CPU twins agree on the first 15 frames")
 
-    # 5. determinism and resume on the lattice path: frames 0-29 twice,
-    # then again with a checkpoint after frame 14 and the run continued
-    # from the loaded file; bitwise equal poses
-    short = inc.replace(end_frame=30)
-    a = run_slam(frames, short, device).get_poses()
-    b = run_slam(frames, short, device).get_poses()
-    _require(a.shape == (30, 3) and a.tobytes() == b.tobytes(),
-             "a rerun of frames 0-29 gives bitwise equal poses")
-    print("[determinism] frames 0-29 twice, lattice on: poses bitwise equal",
-          flush=True)
+    # 5. the loop-closure verifier on the [main] run's keyframes, then
+    # the kernel variants it runs against their twins at its shapes
+    rows += _loop_closure_phases(
+        _verify_inputs(cfg, frames, gt, fe_full, device), scenes["synthetic"])
+
+    # 6. determinism on both grid paths: frames 0-29 twice; resume on the
+    # lattice path: a checkpoint after frame 14 and the run continued from
+    # the loaded file; bitwise equal poses
+    short = inc.replace(end_frame=DETERMINISM_FRAMES)
+    a = _check_determinism(frames, device,
+                           {"full rebuild": full, "lattice": inc})["lattice"]
     with tempfile.TemporaryDirectory() as tmp:
         ckpt = os.path.join(tmp, "state.npz")
         fe15 = run_slam(frames, inc.replace(end_frame=15), device,
@@ -844,13 +1359,15 @@ def main() -> int:
         size = os.path.getsize(ckpt)
         c = run_slam(frames, short, device, checkpoint_path=ckpt,
                      resume=True, checkpoint_save=False).get_poses()
-    _require(c.shape == (30, 3) and c.tobytes() == a.tobytes(),
+    _require(c.shape == (DETERMINISM_FRAMES, 3) and c.tobytes() == a.tobytes(),
              "a run resumed from the checkpoint of frame 14 gives the "
              "uninterrupted run's poses bit for bit")
     print(f"[resume] checkpoint after frame 14 ({size} bytes), frames 15-29 "
           f"from the loaded file: poses and lattice bitwise equal",
           flush=True)
 
+    print(f"[time] {time.perf_counter() - t_start:.1f} s from the device "
+          f"check to here", flush=True)
     print(json.dumps({"kernels": rows}))
     print(_nvidia_smi())
     print(json.dumps({"ok": True, "device": {
@@ -860,4 +1377,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if len(sys.argv) == 3 and sys.argv[1] == "--loop-closure":
+        sys.exit(_loop_closure_child(sys.argv[2]))
     sys.exit(main())

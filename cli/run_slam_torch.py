@@ -11,7 +11,10 @@ Examples:
   python cli/run_slam_torch.py --simulate 120 --out out/ --device cpu
 
 Writes poses.txt, poses_full.txt, map.pcd, submap_NNN.pcd,
-metrics.jsonl and summary.json into --out. --device defaults to cuda
+metrics.jsonl and summary.json into --out; with --gt (or --simulate)
+summary.json holds the ATE of the trajectory and of the raw odometry,
+both against the ground-truth rows of the processed frames (from
+--start-frame on). --device defaults to cuda
 and fails when there is no CUDA device; pass --device cpu to run the
 plain PyTorch twins instead of the kernels. The incremental moment
 lattice is switched through --config ({"ndt_incremental_grid": 1} or
@@ -127,6 +130,9 @@ def main():
             1.0 if m.get("successful") else 0.0 for m in fe.metrics
         ])) if fe.metrics else 0.0,
     }
+    if fe.n_grid_fallbacks:
+        # the JAX CLI's key, written only when a window escaped
+        summary["grid_fallbacks"] = fe.n_grid_fallbacks
     if device.type == "cuda":
         summary["device_name"] = torch.cuda.get_device_name(device)
     if true_poses is not None and fe.pose_history:
@@ -134,8 +140,10 @@ def main():
         # poses_full.txt row k is the k-th processed frame
         first = next(i for i, s in enumerate(stamps)
                      if s >= cfg.start_frame)
-        summary["ate_rmse_m"] = ate_rmse(fe.get_poses(),
-                                         true_poses[first:first + n])
+        gt = true_poses[first:first + n]
+        summary["ate_rmse_m"] = ate_rmse(fe.get_poses(), gt)
+        odo = np.asarray([f.odo_pose for f in frames[first:first + n]])
+        summary["ate_odometry_m"] = ate_rmse(odo, gt)
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(json.dumps(summary))

@@ -8,9 +8,10 @@ Nothing here looks at the machine: which engine runs is decided by the
 device of the tensors the caller passes (CUDA tensors go to the
 kernels of `ndt/kernels.py`, CPU tensors to their plain twins), and a
 setting whose "auto" value depends on the device is resolved by the
-caller that knows it (`resolved_ndt_incremental_grid(device_type)`).
-Features not ported yet (loop closure, the pipelined front end) resolve
-to off; `FrontEnd` refuses a config that forces them on.
+caller that knows it (`resolved_ndt_incremental_grid(device_type)`,
+`resolved_loop_verify_async(device_type)`). Features not ported yet
+(the loop-closure back end, the pipelined front end) resolve to off;
+`FrontEnd` refuses a config that forces them on.
 """
 
 from __future__ import annotations
@@ -96,7 +97,8 @@ class SlamConfig:
     # ---- numerics ----
     dtype: Any = dataclasses.field(default="float32")
 
-    # ---- loop closure / pose graph: not ported yet ----
+    # ---- loop closure / pose graph: the verifier and the keyframe
+    # store are ported (graph/), the back end is not ----
     loop_enable: bool = False
     loop_radius: float = 5.0
     loop_drift_gain: float = 3.0
@@ -156,6 +158,17 @@ class SlamConfig:
             return bool(self.ndt_incremental_grid)
         return LATTICE_AUTO_ON_CUDA and device_type == "cuda"
 
+    def resolved_loop_verify_async(self, device_type: str) -> bool:
+        """Whether loop verification on a device of `device_type`
+        ("cuda", "cpu") resolves one check cycle late. 0/1 force; -1 is
+        off on both: off on "cpu" as in the JAX package, and off on
+        "cuda" until the back end that dispatches verifications is
+        ported and its asynchronous path measured on the card (the JAX
+        package resolves -1 to on for its accelerator)."""
+        if self.loop_verify_async >= 0:
+            return bool(self.loop_verify_async)
+        return False
+
     @property
     def resolved_grid_mom_cells(self) -> int:
         """Moment-lattice side length (cells), even, >= the grid window.
@@ -171,6 +184,18 @@ class SlamConfig:
             )
             b = window + 2 * margin
         return b + (b % 2)
+
+    @property
+    def grid_num_cells(self) -> int:
+        return self.grid_cells_x * self.grid_cells_y
+
+    @property
+    def grid_extent_x(self) -> float:
+        return self.grid_cells_x * self.ndt_resolution
+
+    @property
+    def grid_extent_y(self) -> float:
+        return self.grid_cells_y * self.ndt_resolution
 
     def replace(self, **kw) -> "SlamConfig":
         return dataclasses.replace(self, **kw)

@@ -18,6 +18,7 @@
 // pointer (capturable in a CUDA graph), and returns cudaGetLastError()
 // (0 on success).
 
+#include <climits>
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -28,7 +29,8 @@ constexpr int kWinThreads = 128;   // threads a block of kernels 1 and 2
 constexpr int kWinWarps = kWinThreads / 32;
 constexpr int kSghValues = 12;     // sums a point feeds into kernel 1
 constexpr int kSghRow = 16;        // floats a pose in kernel 1's output
-constexpr int kMaxPoses = 128;     // poses a launch of kernels 1 and 2
+constexpr int kMaxPoses = 65535;   // poses a launch of kernels 1 and 2:
+                                   // the limit of gridDim.y
 constexpr int kNnThreads = 128;    // threads a block of kernel 3
 constexpr int kNnWarps = kNnThreads / 32;
 constexpr int kNnSources = 2;      // sources a thread holds in registers
@@ -47,19 +49,48 @@ constexpr int kNnFinStep =         // sources a block takes at a time
 constexpr int kNnFinCluster = 8;   // blocks of the fitness finish, one cluster
 constexpr float kBig = 1.0e12f;    // "no neighbour", the twin's BIG
 
-// Operands shared by kernels 1 and 2, passed by value.
+// Operands shared by kernels 1 and 2, passed by value. A launch covers
+// one grid shape (nx, ny, resolution, d1, d2: one loop-closure ladder
+// stage) and G stacked grids of it; pose p reads grid grid_of[p] and
+// source row grid_of[p] (grid 0 for every pose when grid_of is null).
 struct Window {
-  const float2* xy;              // [n] source points, sensor frame
-  const unsigned char* mask;     // [n] bool
+  const float2* xy;              // [rows, n] source points, sensor frame
+  const unsigned char* mask;     // [rows, n] bool
   const float* poses;            // [poses, 3] (tx, ty, theta in rad)
-  const float* origin;           // [2] lower-left corner of the grid
-  const float4* table;           // [K, 2] cells: (kx, ky, mx, my),
-                                 //               (b00, b01, b11, valid)
-  const int* cell_slot;          // [nx*ny] table slot of a cell id, or -1
-  int n, nx, ny, r;
+  const int* grid_of;            // [poses] grid of a pose, or null
+  const float* origin;           // [G, 2] lower-left corner of each grid
+  const float4* table;           // [G, K, 2] cells: (kx, ky, mx, my),
+                                 //                  (b00, b01, b11, valid)
+  const int* cell_slot;          // [G, nx*ny] table slot of a cell id, or -1
+  int n, nx, ny, r, k, grids;
+  int src_stride;                // points between source rows; 0: one
+                                 // source shared by every pose
   float inv_res;                 // f32 reciprocal of the resolution
   float d1, neg_half_d2, md_cap, coef_scale, d2;
 };
+
+// What one pose reads: its grid and its source row.
+struct GridView {
+  const float2* xy;
+  const unsigned char* mask;
+  const float* origin;
+  const float4* table;
+  const int* cell_slot;
+  bool ok;                       // the grid index is in [0, G)
+};
+
+__device__ __forceinline__ GridView grid_view(const Window& w, int pose) {
+  const int g = w.grid_of != nullptr ? __ldg(w.grid_of + pose) : 0;
+  GridView v;
+  v.ok = g >= 0 && g < w.grids;
+  const size_t gs = v.ok ? (size_t)g : 0;
+  v.xy = w.xy + gs * w.src_stride;
+  v.mask = w.mask + gs * w.src_stride;
+  v.origin = w.origin + 2 * gs;
+  v.table = w.table + 2 * gs * w.k;
+  v.cell_slot = w.cell_slot + gs * w.nx * w.ny;
+  return v;
+}
 
 // A source point under one pose: the twin's point_features.
 struct Feature {
@@ -73,21 +104,20 @@ struct Feature {
 // library turns on the card into a product with the f32 reciprocal; a
 // true division floors differently for a few points, since 0.3 is no
 // power of two.
-__device__ __forceinline__ Feature point_feature(const Window& w, int pose,
-                                                 int i) {
+__device__ __forceinline__ Feature point_feature(const float* p, float2 q,
+                                                 const float* origin,
+                                                 float inv_res) {
   Feature f;
-  const float* p = w.poses + 3 * pose;
   f.tx = p[0];
   f.ty = p[1];
   f.c = cosf(p[2]);
   f.s = sinf(p[2]);
-  const float2 q = w.xy[i];
   f.x = q.x;
   f.y = q.y;
   f.px = f.c * q.x - f.s * q.y + f.tx;
   f.py = f.s * q.x + f.c * q.y + f.ty;
-  f.fx = floorf((f.px - w.origin[0]) * w.inv_res);
-  f.fy = floorf((f.py - w.origin[1]) * w.inv_res);
+  f.fx = floorf((f.px - origin[0]) * inv_res);
+  f.fy = floorf((f.py - origin[1]) * inv_res);
   return f;
 }
 
@@ -139,20 +169,29 @@ __device__ __forceinline__ float block_sum(float (&v)[V],
 // the launch itself. The design spreads the (pose, point) pairs over
 // the card (16 x poses blocks for 2048 points), keeps the index and the
 // table in L2 (147 KB + 64 KB), and leaves a wrapper call at two
-// launches with no tensor op around them. A batch over grids can come
-// as blockIdx.z and a stride on table, cell_slot and origin.
+// launches with no tensor op around them.
+//
+// The grid axis (loop-closure verification: G candidate keyframe grids
+// of one ladder stage, up to 240 line-search poses a call) is a
+// per-pose grid index and strides over the stacked tables, slot maps
+// and origins, and over the source rows: blockIdx.y stays the pose, so
+// the launch shape, the reduction order and, with one grid, every bit
+// are those of the single-grid call. A pose whose grid index is outside
+// [0, G) matches nothing.
 template <bool kDerivs>
 __global__ void window_kernel(Window w, float* __restrict__ partials) {
   constexpr int V = kDerivs ? kSghValues : 1;
   __shared__ float s_warp[kWinWarps][V];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int pose = blockIdx.y;
+  const GridView gv = grid_view(w, pose);
   float v[V];
 #pragma unroll
   for (int k = 0; k < V; ++k) v[k] = 0.f;
 
-  if (i < w.n && w.mask[i]) {
-    const Feature f = point_feature(w, pose, i);
+  if (gv.ok && i < w.n && gv.mask[i]) {
+    const Feature f = point_feature(w.poses + 3 * pose, gv.xy[i], gv.origin,
+                                    w.inv_res);
     // Range test in float, before the conversion: a masked slot sits at
     // 1e8 and a diverged pose may be NaN or inf (every comparison with
     // NaN is false).
@@ -168,10 +207,10 @@ __global__ void window_kernel(Window w, float* __restrict__ partials) {
         for (int dy = -w.r; dy <= w.r; ++dy) {
           const int gy = cy + dy;
           if (gy < 0 || gy >= w.ny) continue;
-          const int slot = __ldg(w.cell_slot + gx * w.ny + gy);
+          const int slot = __ldg(gv.cell_slot + gx * w.ny + gy);
           if (slot < 0) continue;
-          const float4 t0 = __ldg(w.table + 2 * slot);
-          const float4 t1 = __ldg(w.table + 2 * slot + 1);
+          const float4 t0 = __ldg(gv.table + 2 * slot);
+          const float4 t1 = __ldg(gv.table + 2 * slot + 1);
           const float qx = f.px - t0.z;
           const float qy = f.py - t0.w;
           const float b00 = t1.x, b01 = t1.y, b11 = t1.z;
@@ -255,7 +294,8 @@ __global__ void window_sum_kernel(const float* __restrict__ partials,
 __global__ void features_kernel(Window w, float4* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w.n) return;
-  const Feature f = point_feature(w, blockIdx.y, i);
+  const Feature f = point_feature(w.poses + 3 * blockIdx.y, w.xy[i],
+                                  w.origin, w.inv_res);
   out[blockIdx.y * w.n + i] = make_float4(f.px, f.py, f.fx, f.fy);
 }
 
@@ -321,9 +361,26 @@ __global__ void empty_kernel() {}
 //   takes the minimum over them (exact in any order), clamps, applies
 //   the source mask and, in fitness mode, sums in a fixed order.
 //
-// A variant that also returns the index of the nearest target (for a
-// trimmed ICP) would be a template flag on nn_pairs and on the staged
-// segment (the target's index beside its coordinates).
+// Two variants for loop-closure verification, which holds B candidate
+// keyframes at a time:
+// - A batch axis (blockIdx.z): B independent problems, each its own
+//   sources, targets and masks at [B, n] / [B, m] strides, one launch
+//   pair for all. B = 1 is the single call, bit for bit.
+// - The argmin form (kArgmin), for the trimmed ICP (ndt_slam_tpu/ndt/
+//   icp.py:43-86): the index of the nearest target rides beside its
+//   coordinates in the staged segment and beside the distance in
+//   registers and in the block partials. A pair replaces the best one
+//   when its distance is lower or, on an equal distance, its target
+//   index is lower (nn_better), so the result is the lowest-index
+//   nearest target whatever order the chunks, the warps' ballot
+//   compaction and the blocks deliver the pairs in: JAX's argmin inside
+//   a chunk and its strict < across chunks give the same target. A NaN
+//   distance wins and stays, the lowest-index NaN among several. The
+//   running best starts at +inf rather than 1e12, so a live target
+//   farther than 1e12 still names the index; the finish step caps the
+//   distance at 1e12 as the distance form does, so the distances equal
+//   that form's bit for bit. A masked source, and a source without a
+//   live target, get index 0.
 
 // best[s] = min(best[s], |src_s - t|^2) over the targets of one staged
 // segment. kCarryNan: a NaN distance wins and stays, as in the twin.
@@ -349,6 +406,42 @@ __device__ __forceinline__ void nn_pairs(const float2* __restrict__ seg,
   }
 }
 
+// Does (d2, j) replace (best, bj) in the argmin form? The lower
+// distance, on a tie the lower index; kCarryNan: a NaN beats every
+// number and, among NaNs, the lower index wins.
+template <bool kCarryNan>
+__device__ __forceinline__ bool nn_better(float d2, int j, float best,
+                                          int bj) {
+  if constexpr (kCarryNan) {
+    if (d2 != d2) return best == best || j < bj;
+    if (best != best) return false;
+  }
+  return d2 < best || (d2 == best && j < bj);
+}
+
+// nn_pairs of the argmin form: seg_j holds the targets' indices.
+template <bool kCarryNan>
+__device__ __forceinline__ void nn_pairs_argmin(
+    const float2* __restrict__ seg, const int* __restrict__ seg_j,
+    int count, const float (&sx)[kNnSources], const float (&sy)[kNnSources],
+    float (&best)[kNnSources], int (&bidx)[kNnSources]) {
+#pragma unroll 4
+  for (int j = 0; j < count; ++j) {
+    const float2 t = seg[j];
+    const int tj = seg_j[j];
+#pragma unroll
+    for (int s = 0; s < kNnSources; ++s) {
+      const float dx = sx[s] - t.x;
+      const float dy = sy[s] - t.y;
+      const float d2 = dx * dx + dy * dy;
+      if (nn_better<kCarryNan>(d2, tj, best[s], bidx[s])) {
+        best[s] = d2;
+        bidx[s] = tj;
+      }
+    }
+  }
+}
+
 __device__ __forceinline__ bool not_finite(float v) {
   return !(fabsf(v) < INFINITY);
 }
@@ -364,33 +457,51 @@ __device__ __forceinline__ unsigned live_bits(
   return bits;
 }
 
-// First launch. grid (B, source tiles), kNnThreads threads, kNnSources
-// sources and kNnTargets targets of a chunk a thread. part [B, n]: the
-// block's minimum for each source of its tile. live [tiles, B]: the
-// live targets the block met, or -1 where the tile had no live source
-// and the block left without looking.
+// First launch. grid (B, source tiles, batch), kNnThreads threads,
+// kNnSources sources and kNnTargets targets of a chunk a thread. Each
+// batch row reads src [n], src_mask [n], tgt [m], tgt_mask [m] at its
+// own offset and writes its own part, part_idx and live. part [B, n]:
+// the block's minimum for each source of its tile (kArgmin: part_idx
+// [B, n], the index that goes with it). live [tiles, B]: the live
+// targets the block met, or -1 where the tile had no live source and
+// the block left without looking.
+template <bool kArgmin>
 __global__ void __launch_bounds__(kNnThreads)
 nn_kernel(const float2* __restrict__ src,
           const unsigned char* __restrict__ src_mask,
           const float2* __restrict__ tgt,
           const unsigned char* __restrict__ tgt_mask,
-          float* __restrict__ part, int* __restrict__ live, int n, int m) {
+          float* __restrict__ part, int* __restrict__ part_idx,
+          int* __restrict__ live, int n, int m) {
   constexpr int S = kNnSources, E = kNnTargets;
   __shared__ float2 s_t[2][kNnChunk];
+  __shared__ int s_j[2][kArgmin ? kNnChunk : 1];
   __shared__ int s_count[2][kNnWarps];
   __shared__ int s_bad[2][kNnWarps];
   const unsigned kFull = 0xffffffffu;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int i0 = (blockIdx.y * kNnThreads + threadIdx.x) * S;
+  {
+    const size_t row = blockIdx.z;
+    src += row * n;
+    src_mask += row * n;
+    tgt += row * m;
+    tgt_mask += row * m;
+    part += row * gridDim.x * n;
+    if constexpr (kArgmin) part_idx += row * gridDim.x * n;
+    live += row * gridDim.y * gridDim.x;
+  }
 
   float sx[S], sy[S], best[S];
+  int bidx[S];
   bool src_live = false, src_bad = false;
 #pragma unroll
   for (int s = 0; s < S; ++s) {
     const int i = i0 + s;
     sx[s] = 0.f;
     sy[s] = 0.f;
-    best[s] = kBig;
+    best[s] = kArgmin ? INFINITY : kBig;
+    bidx[s] = INT_MAX;
     if (i < n) {
       const float2 q = src[i];
       sx[s] = q.x;
@@ -432,6 +543,7 @@ nn_kernel(const float2* __restrict__ src,
       if (c >= chunks) break;
       const int j0 = c * kNnChunk + threadIdx.x * E;
       float2* seg = s_t[buf] + warp * kNnSeg;
+      int* seg_j = s_j[buf] + (kArgmin ? warp * kNnSeg : 0);
       float2 t[E];
 #pragma unroll
       for (int e = 0; e < E; ++e) {
@@ -444,7 +556,11 @@ nn_kernel(const float2* __restrict__ src,
       for (int e = 0; e < E; ++e) {
         const bool on = (ahead[g] >> e) & 1u;
         const unsigned vote = __ballot_sync(kFull, on);
-        if (on) seg[count + __popc(vote & ((1u << lane) - 1u))] = t[e];
+        if (on) {
+          const int at = count + __popc(vote & ((1u << lane) - 1u));
+          seg[at] = t[e];
+          if constexpr (kArgmin) seg_j[at] = j0 + e;
+        }
         bad |= not_finite(t[e].x) || not_finite(t[e].y);
         count += __popc(vote);
       }
@@ -468,10 +584,19 @@ nn_kernel(const float2* __restrict__ src,
 #pragma unroll
         for (int w = 0; w < kNnWarps; ++w) {
           const float2* from = s_t[buf] + w * kNnSeg;
-          if (carry)
+          if constexpr (kArgmin) {
+            const int* from_j = s_j[buf] + w * kNnSeg;
+            if (carry)
+              nn_pairs_argmin<true>(from, from_j, s_count[buf][w], sx, sy,
+                                    best, bidx);
+            else
+              nn_pairs_argmin<false>(from, from_j, s_count[buf][w], sx, sy,
+                                     best, bidx);
+          } else if (carry) {
             nn_pairs<true>(from, s_count[buf][w], sx, sy, best);
-          else
+          } else {
             nn_pairs<false>(from, s_count[buf][w], sx, sy, best);
+          }
         }
       }
       buf ^= 1;
@@ -479,8 +604,13 @@ nn_kernel(const float2* __restrict__ src,
   }
   if (threadIdx.x == 0) live[blockIdx.y * gridDim.x + blockIdx.x] = met;
 #pragma unroll
-  for (int s = 0; s < S; ++s)
-    if (i0 + s < n) part[(size_t)blockIdx.x * n + i0 + s] = best[s];
+  for (int s = 0; s < S; ++s) {
+    if (i0 + s < n) {
+      part[(size_t)blockIdx.x * n + i0 + s] = best[s];
+      if constexpr (kArgmin)
+        part_idx[(size_t)blockIdx.x * n + i0 + s] = bidx[s];
+    }
+  }
 }
 
 // The twin's minimum: a NaN on either side wins.
@@ -512,6 +642,12 @@ nn_finish_kernel(const float* __restrict__ part,
                  float* __restrict__ d2_out, float* __restrict__ fit_out,
                  int n, int blocks, int n_live) {
   constexpr int kPerRound = kNnFinThreads / kNnFinShare;   // 128 sources
+  if constexpr (!kFitness) {   // the batch row: blockIdx.y
+    const size_t row = blockIdx.y;
+    part += row * blocks * n;
+    src_mask += row * n;
+    d2_out += row * n;
+  }
   __shared__ float s_min[kNnFinRounds][kNnFinShare][kPerRound];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int sub = warp % kNnFinShare;
@@ -612,10 +748,49 @@ nn_finish_kernel(const float* __restrict__ part,
   }
 }
 
+// Second launch of the argmin form, kNnArgThreads threads, grid
+// (source blocks, batch): one thread a source takes the best (distance,
+// index) over the block partials by nn_better (a NaN carried), caps the
+// distance at 1e12, clamps it at 0 and applies the source mask. The
+// partials are few (the blocks of one source tile), so a plain loop.
+constexpr int kNnArgThreads = 256;
+
+__global__ void __launch_bounds__(kNnArgThreads)
+nn_argmin_finish_kernel(const float* __restrict__ part,
+                        const int* __restrict__ part_idx,
+                        const unsigned char* __restrict__ src_mask,
+                        float* __restrict__ d2_out, int* __restrict__ idx_out,
+                        int n, int blocks) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const size_t row = blockIdx.y;
+  const size_t at = row * n + i;
+  const bool on = src_mask[at];
+  float best = INFINITY;
+  int bj = INT_MAX;
+  if (on) {
+    const float* p = part + row * blocks * n + i;
+    const int* q = part_idx + row * blocks * n + i;
+    for (int b = 0; b < blocks; ++b) {
+      const float d = __ldg(p + (size_t)b * n);
+      const int j = __ldg(q + (size_t)b * n);
+      if (nn_better<true>(d, j, best, bj)) {
+        best = d;
+        bj = j;
+      }
+    }
+  }
+  float d2 = nan_min(kBig, best);
+  d2 = d2 < 0.f ? 0.f : d2;   // a NaN stays
+  d2_out[at] = on ? d2 : kBig;
+  idx_out[at] = (on && bj != INT_MAX) ? bj : 0;
+}
+
 // Both launches of kernel 1 (derivs) or kernel 2 on `stream`.
 int window_launch(const Window& w, int poses, bool derivs, float* partials,
                   float* out, void* stream) {
-  if (poses < 1 || poses > kMaxPoses || w.n < 0 || w.r < 0)
+  if (poses < 1 || poses > kMaxPoses || w.n < 0 || w.r < 0 || w.grids < 1 ||
+      w.src_stride < 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int blocks = (w.n + kWinThreads - 1) / kWinThreads;
@@ -632,13 +807,16 @@ int window_launch(const Window& w, int poses, bool derivs, float* partials,
 }
 
 Window make_window(const float* xy, const unsigned char* mask,
-                   const float* poses, const float* origin,
-                   const float* table, const int* cell_slot, int n, int nx,
-                   int ny, int r, float inv_res, float d1, float neg_half_d2,
-                   float md_cap, float coef_scale, float d2) {
-  return Window{(const float2*)xy, mask, poses, origin,
-                (const float4*)table, cell_slot, n, nx, ny, r, inv_res,
-                d1, neg_half_d2, md_cap, coef_scale, d2};
+                   const float* poses, const int* grid_of,
+                   const float* origin, const float* table,
+                   const int* cell_slot, int n, int nx, int ny, int r, int k,
+                   int grids, int src_stride, float inv_res, float d1,
+                   float neg_half_d2, float md_cap, float coef_scale,
+                   float d2) {
+  return Window{(const float2*)xy, mask, poses, grid_of, origin,
+                (const float4*)table, cell_slot, n, nx, ny, r, k, grids,
+                src_stride, inv_res, d1, neg_half_d2, md_cap, coef_scale,
+                d2};
 }
 
 }  // namespace
@@ -646,27 +824,34 @@ Window make_window(const float* xy, const unsigned char* mask,
 extern "C" {
 
 // out [poses, 16]; partials [poses, ceil(n / 128), 12] scratch.
+// grid_of [poses] (null: every pose on grid 0); origin [grids, 2], table
+// [grids, k, 8], cell_slot [grids, nx*ny]; xy [rows, n, 2] and mask
+// [rows, n] with rows src_stride / n apart (src_stride 0: one source).
 int ndt_sgh(const float* xy, const unsigned char* mask, const float* poses,
-            const float* origin, const float* table, const int* cell_slot,
-            float* partials, float* out, int n, int n_poses, int nx, int ny,
-            int r, float inv_res, float d1, float neg_half_d2, float md_cap,
-            float coef_scale, float d2, void* stream) {
-  const Window w = make_window(xy, mask, poses, origin, table, cell_slot, n,
-                               nx, ny, r, inv_res, d1, neg_half_d2, md_cap,
-                               coef_scale, d2);
+            const int* grid_of, const float* origin, const float* table,
+            const int* cell_slot, float* partials, float* out, int n,
+            int n_poses, int nx, int ny, int r, int k, int grids,
+            int src_stride, float inv_res, float d1, float neg_half_d2,
+            float md_cap, float coef_scale, float d2, void* stream) {
+  const Window w = make_window(xy, mask, poses, grid_of, origin, table,
+                               cell_slot, n, nx, ny, r, k, grids, src_stride,
+                               inv_res, d1, neg_half_d2, md_cap, coef_scale,
+                               d2);
   return window_launch(w, n_poses, true, partials, out, stream);
 }
 
-// out [poses]; partials [poses, ceil(n / 128)] scratch.
+// out [poses]; partials [poses, ceil(n / 128)] scratch; the operands as
+// for ndt_sgh.
 int ndt_score_many(const float* xy, const unsigned char* mask,
-                   const float* poses, const float* origin,
-                   const float* table, const int* cell_slot, float* partials,
-                   float* out, int n, int n_poses, int nx, int ny, int r,
-                   float inv_res, float d1, float neg_half_d2, float md_cap,
-                   void* stream) {
-  const Window w = make_window(xy, mask, poses, origin, table, cell_slot, n,
-                               nx, ny, r, inv_res, d1, neg_half_d2, md_cap,
-                               0.f, 0.f);
+                   const float* poses, const int* grid_of,
+                   const float* origin, const float* table,
+                   const int* cell_slot, float* partials, float* out, int n,
+                   int n_poses, int nx, int ny, int r, int k, int grids,
+                   int src_stride, float inv_res, float d1,
+                   float neg_half_d2, float md_cap, void* stream) {
+  const Window w = make_window(xy, mask, poses, grid_of, origin, table,
+                               cell_slot, n, nx, ny, r, k, grids, src_stride,
+                               inv_res, d1, neg_half_d2, md_cap, 0.f, 0.f);
   return window_launch(w, n_poses, false, partials, out, stream);
 }
 
@@ -693,20 +878,39 @@ int ndt_empty(void* stream) {
   return (int)cudaGetLastError();
 }
 
-// Kernel 3, both launches on `stream`. part [blocks, n] and live
-// [tiles, blocks] are scratch, tiles = ceil(n / ndt_nn_tile()).
-// d2_out [n] or, with fit_out [1] not null, the fitness mean. blocks:
-// the blocks that share the target chunks of one source tile.
+// Kernel 3, both launches on `stream`, over `batch` rows: src [batch,
+// n, 2], src_mask [batch, n], tgt [batch, m, 2], tgt_mask [batch, m].
+// part [batch, blocks, n] and live [batch, tiles, blocks] are scratch,
+// tiles = ceil(n / ndt_nn_tile()); part_idx [batch, blocks, n] too for
+// the argmin form. Out: d2_out [batch, n]; with idx_out [batch, n] not
+// null also the index of the nearest live target (the argmin form);
+// with fit_out [1] not null (batch 1, no index) the fitness mean
+// instead of d2. blocks: the blocks that share the target chunks of one
+// source tile.
 int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
-           const unsigned char* tgt_mask, float* part, int* live,
-           float* d2_out, float* fit_out, int n, int m, int blocks,
-           void* stream) {
-  if (n < 1 || m < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+           const unsigned char* tgt_mask, float* part, int* part_idx,
+           int* live, float* d2_out, int* idx_out, float* fit_out, int n,
+           int m, int batch, int blocks, void* stream) {
+  if (n < 1 || m < 1 || blocks < 1 || batch < 1 || batch > 65535 ||
+      (fit_out != nullptr && (batch != 1 || idx_out != nullptr)) ||
+      (idx_out != nullptr && (part_idx == nullptr || d2_out == nullptr)))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int tiles = (n + kNnTile - 1) / kNnTile;
-  nn_kernel<<<dim3(blocks, tiles), kNnThreads, 0, st>>>(
-      (const float2*)src, src_mask, (const float2*)tgt, tgt_mask, part, live,
-      n, m);
+  const dim3 grid(blocks, tiles, batch);
+  if (idx_out != nullptr) {
+    nn_kernel<true><<<grid, kNnThreads, 0, st>>>(
+        (const float2*)src, src_mask, (const float2*)tgt, tgt_mask, part,
+        part_idx, live, n, m);
+    nn_argmin_finish_kernel<<<dim3((n + kNnArgThreads - 1) / kNnArgThreads,
+                                   batch),
+                              kNnArgThreads, 0, st>>>(
+        part, part_idx, src_mask, d2_out, idx_out, n, blocks);
+    return (int)cudaGetLastError();
+  }
+  nn_kernel<false><<<grid, kNnThreads, 0, st>>>(
+      (const float2*)src, src_mask, (const float2*)tgt, tgt_mask, part,
+      nullptr, live, n, m);
   if (fit_out != nullptr) {
     cudaLaunchAttribute cluster;
     cluster.id = cudaLaunchAttributeClusterDimension;
@@ -725,9 +929,9 @@ int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
         tiles * blocks);
     if (rc != cudaSuccess) return (int)rc;
   } else {
-    nn_finish_kernel<false><<<(n + kNnFinStep - 1) / kNnFinStep, kNnFinThreads,
-                              0, st>>>(part, live, src_mask, d2_out, fit_out,
-                                       n, blocks, tiles * blocks);
+    nn_finish_kernel<false><<<dim3((n + kNnFinStep - 1) / kNnFinStep, batch),
+                              kNnFinThreads, 0, st>>>(
+        part, live, src_mask, d2_out, fit_out, n, blocks, tiles * blocks);
   }
   return (int)cudaGetLastError();
 }

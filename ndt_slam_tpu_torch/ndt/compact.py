@@ -14,6 +14,17 @@ look the (2r+1)^2 window cells up through `CompactGrid.cell_slot` and
 read them from `CompactGrid.table`, both built here once per frame, and
 compute the point features themselves in `point_features`' operation
 order, so the window test passes the same pairs on both sides.
+
+The grid axis of those kernels (loop-closure verification: every pose
+against its own candidate's grid) takes G tables of one grid shape
+stacked by `stack_grids`. Its twin, `window_rows`, is the kernels' own
+route in plain tensor code over all poses at once: the (2r+1)^2 window
+cells looked up through the stacked `cell_slot`, the per-point values
+formed in the kernel's order and summed over points in the kernel's
+fixed tree (a butterfly inside each warp of 32 points, the warps of a
+128-point block in order, the blocks in order). So a pose's result does
+not depend on the other poses of the call, and the kernel agrees with
+it to the rounding of the transcendental functions.
 """
 
 from __future__ import annotations
@@ -23,6 +34,10 @@ from typing import NamedTuple, Optional
 import torch
 
 from ndt_slam_tpu_torch.ndt.grid import NDTGrid
+
+# Threads of a block of the window kernels (kWinThreads in
+# csrc/ndt_kernels.cu): the unit of their fixed-order point sums.
+WINDOW_THREADS = 128
 
 
 class CompactGrid(NamedTuple):
@@ -210,3 +225,151 @@ def pose_terms(pose_rad, xy, px, py, c, s, gqx, gqy, hq00, hq01, hq11):
         torch.stack([h02, h12, h22]),
     ])
     return grad, hess
+
+
+class GridStack(NamedTuple):
+    """G compact tables of one grid shape (nx, ny, resolution), stacked
+    for the grid axis of the window kernels: `table` [G, K, 8],
+    `cell_slot` int32 [G, nx*ny] and `origin` [G, 2], each grid's
+    `CompactGrid` fields one row apart."""
+    table: torch.Tensor
+    cell_slot: torch.Tensor
+    origin: torch.Tensor
+    nx: int
+    ny: int
+    resolution: float
+
+    @property
+    def grids(self) -> int:
+        return self.table.shape[0]
+
+    @property
+    def capacity(self) -> int:
+        return self.table.shape[1]
+
+
+def stack_grids(cgs) -> GridStack:
+    """Stack compact grids of one shape (same nx, ny, resolution and
+    capacity, each with its window index) into a `GridStack`."""
+    first = cgs[0]
+    for cg in cgs:
+        if (cg.nx, cg.ny, cg.resolution, cg.capacity) != (
+                first.nx, first.ny, first.resolution, first.capacity):
+            raise ValueError("stack_grids needs grids of one shape")
+        if cg.table is None or cg.cell_slot is None:
+            raise ValueError("stack_grids needs grids with a window index "
+                             "(table, cell_slot)")
+    return GridStack(
+        table=torch.stack([cg.table for cg in cgs]),
+        cell_slot=torch.stack([cg.cell_slot for cg in cgs]),
+        origin=torch.stack([cg.origin for cg in cgs]),
+        nx=first.nx, ny=first.ny, resolution=first.resolution,
+    )
+
+
+def _block_tree_sum(v):
+    """[P, N, V] per-point values -> [P, V], summed as the window
+    kernels sum them: points in blocks of WINDOW_THREADS, a shuffle
+    butterfly inside each warp of 32, the warps of a block in order,
+    then the blocks in order."""
+    p, n, nv = v.shape
+    blocks = -(-n // WINDOW_THREADS)
+    pad = blocks * WINDOW_THREADS - n
+    if pad:
+        v = torch.cat([v, v.new_zeros((p, pad, nv))], dim=1)
+    v = v.reshape(p, blocks, WINDOW_THREADS // 32, 32, nv)
+    for off in (16, 8, 4, 2, 1):
+        v = v[:, :, :, :off] + v[:, :, :, off:2 * off]
+    block = v.new_zeros((p, blocks, nv))
+    for w in range(WINDOW_THREADS // 32):
+        block = block + v[:, :, w, 0]
+    total = v.new_zeros((p, nv))
+    for b in range(blocks):
+        total = total + block[:, b]
+    return total
+
+
+def window_rows(poses_rad, grid_index, xy, mask, gs: GridStack, d1: float,
+                d2: float, radius: int = 1, derivs: bool = True):
+    """Pose p against grid `grid_index[p]` of `gs`: [P, 16] rows of
+    (E, matched, grad[3], hess[3,3] row-major, 2 zeros) with `derivs`,
+    else E [P]. `xy` [N, 2] / `mask` [N] is one source for every pose;
+    [G, N, 2] / [G, N] gives pose p source row `grid_index[p]`. A pose
+    whose grid index is outside [0, G) matches nothing.
+
+    The plain twin of the window kernels' grid axis, one tensor program
+    over the poses (see the module docstring)."""
+    g = grid_index.to(torch.int64)
+    ok = (g >= 0) & (g < gs.grids)
+    g = torch.where(ok, g, 0)
+    if xy.dim() == 3:
+        xy, mask = xy.index_select(0, g), mask.index_select(0, g)
+    x, y = xy[..., 0], xy[..., 1]
+    nx, ny, r = gs.nx, gs.ny, int(radius)
+    origin = gs.origin.index_select(0, g)
+    tx, ty = poses_rad[:, 0:1], poses_rad[:, 1:2]
+    c = torch.cos(poses_rad[:, 2:3])
+    s = torch.sin(poses_rad[:, 2:3])
+    px = c * x - s * y + tx
+    py = s * x + c * y + ty
+    fx = torch.floor((px - origin[:, 0:1]) / gs.resolution)
+    fy = torch.floor((py - origin[:, 1:2]) / gs.resolution)
+    live = (ok[:, None] & mask & (fx >= -r) & (fx <= nx - 1 + r)
+            & (fy >= -r) & (fy <= ny - 1 + r))
+    cx = torch.where(live, fx, 0.0).to(torch.int64)
+    cy = torch.where(live, fy, 0.0).to(torch.int64)
+    slots = gs.cell_slot.reshape(-1)
+    rows = gs.table.reshape(-1, 8)
+    slot0 = (g * (nx * ny))[:, None]
+    row0 = (g * gs.capacity)[:, None]
+    neg_half_d2, md_cap = -0.5 * d2, 50.0 / d2
+    zero = px.new_zeros(())
+    se = torch.zeros_like(px)
+    sw, gqx, gqy, h00, h01, h11 = (torch.zeros_like(px) for _ in range(6))
+    for dx in range(-r, r + 1):
+        gx = cx + dx
+        for dy in range(-r, r + 1):
+            gy = cy + dy
+            inside = live & (gx >= 0) & (gx < nx) & (gy >= 0) & (gy < ny)
+            slot = slots[slot0 + torch.where(inside, gx * ny + gy, 0)]
+            hit = inside & (slot >= 0)
+            cell = rows[row0 + torch.where(hit, slot, 0).to(torch.int64)]
+            qx, qy = px - cell[..., 2], py - cell[..., 3]
+            b00, b01, b11 = cell[..., 4], cell[..., 5], cell[..., 6]
+            bqx = b00 * qx + b01 * qy
+            bqy = b01 * qx + b11 * qy
+            md = qx * bqx + qy * bqy
+            e = torch.exp(neg_half_d2 * torch.clamp(md, max=md_cap))
+            se = torch.where(hit, se + e, se)
+            if derivs:
+                coef = (-d1 * d2) * e
+                sw = torch.where(hit, sw + 1.0, sw)
+                gqx = torch.where(hit, gqx + coef * bqx, gqx)
+                gqy = torch.where(hit, gqy + coef * bqy, gqy)
+                h00 = torch.where(hit, h00 + coef * (b00 - d2 * bqx * bqx),
+                                  h00)
+                h01 = torch.where(hit, h01 + coef * (b01 - d2 * bqx * bqy),
+                                  h01)
+                h11 = torch.where(hit, h11 + coef * (b11 - d2 * bqy * bqy),
+                                  h11)
+    values = [d1 * se]
+    if derivs:
+        a = -s * x - c * y
+        b = c * x - s * y
+        d2x = -(px - tx)
+        d2y = -(py - ty)
+        values += [
+            sw, gqx, gqy, a * gqx + b * gqy, h00, h01, a * h00 + b * h01,
+            h11, a * h01 + b * h11,
+            a * a * h00 + 2.0 * a * b * h01 + b * b * h11,
+            gqx * d2x + gqy * d2y,
+        ]
+    v = torch.where(live[..., None], torch.stack(values, dim=-1), zero)
+    t = _block_tree_sum(v)
+    if not derivs:
+        return t[:, 0]
+    h = [t[:, 5], t[:, 6], t[:, 7], t[:, 6], t[:, 8], t[:, 9], t[:, 7],
+         t[:, 9], t[:, 10] + t[:, 11]]
+    return torch.stack([t[:, 0], t[:, 1], t[:, 2], t[:, 3], t[:, 4], *h,
+                        zero.expand(t.shape[0]), zero.expand(t.shape[0])],
+                       dim=-1)

@@ -11,10 +11,22 @@ Each wrapper below replaces one Pallas TPU kernel of
 | `nn_sq_dists`         | `_nn_kernel` (:303)       | `fitness.nn_sq_dists`               |
 | `fitness_score`       | `_nn_kernel` + the mean of `fitness_score_pallas` (:369) | `fitness.fitness_score_plain` |
 
+Variants for loop-closure verification (in JAX these are `vmap`s of the
+same kernels and of XLA code; no Pallas original of their own):
+
+| wrapper                     | kernel                          | plain twin |
+|-----------------------------|---------------------------------|------------|
+| `ndt_score_grad_hess_grids` | kernel 1 with a grid axis       | `compact.window_rows` |
+| `ndt_scores_grids`          | kernel 2 with a grid axis       | `compact.window_rows(derivs=False)` |
+| `nn_sq_dists_batched`       | kernel 3 with a batch axis      | `fitness.nn_sq_dists` over the batch |
+| `nn_argmin`                 | kernel 3, argmin form, batched  | `fitness.nn_argmin` |
+
 The device of the input tensors picks the route: a CPU tensor runs the
 twin; a CUDA tensor launches the kernel or raises. There is no
 fallback. Each wrapper counts its calls that launched in `.launches`;
-`launch_counts()` adds the two entry points of kernel 3 up under `nn`.
+`launch_counts()` adds the wrappers of one kernel up under its name
+(`sgh`, `score_many`, `nn`), `wrapper_launch_counts()` gives each
+wrapper's own count.
 
 The first two kernels are bound on the card by latency, not by bytes or
 operations: a call touches ~0.3 MB and ~9 table cells a point. The TPU
@@ -68,12 +80,16 @@ import numpy as np
 import torch
 
 from ndt_slam_tpu_torch.ndt.compact import (
+    WINDOW_THREADS,
     CompactGrid,
+    GridStack,
     ndt_negative_score_compact,
     ndt_score_grad_hess_compact,
+    window_rows,
 )
 from ndt_slam_tpu_torch.ndt.fitness import (
-    BIG, fitness_score_plain as _fitness_plain, nn_sq_dists as _nn_plain,
+    BIG, fitness_score_plain as _fitness_plain, nn_argmin as _argmin_plain,
+    nn_sq_dists as _nn_plain,
 )
 
 SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "ndt_kernels.cu"
@@ -82,8 +98,9 @@ NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
-MAX_POSES = 128      # kMaxPoses in the source
-WINDOW_THREADS = 128  # kWinThreads in the source
+# kMaxPoses in the source: poses of one window-kernel launch, the
+# limit of the launch grid's y extent (one block row a pose).
+MAX_POSES = 65535
 SGH_VALUES = 12      # kSghValues: sums a block writes for one pose
 SGH_ROW = 16         # kSghRow: E, matched, grad[3], hess[3,3], 2 pad
 NN_TILE = 256        # kNnTile: sources a block of kernel 3 holds
@@ -133,11 +150,11 @@ def _load() -> ctypes.CDLL:
         path, _ = build_kernels()
         lib = ctypes.CDLL(str(path))
         p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        window = [p] * 8 + [i] * 5 + [f] * 4
+        window = [p] * 9 + [i] * 8 + [f] * 4
         lib.ndt_sgh.argtypes = window + [f, f, p]
         lib.ndt_score_many.argtypes = window + [p]
         lib.ndt_features.argtypes = [p, p, p, p, i, i, f, p]
-        lib.ndt_nn.argtypes = [p] * 8 + [i] * 3 + [p]
+        lib.ndt_nn.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.ndt_empty.argtypes = [p]
         for fn in (lib.ndt_sgh, lib.ndt_score_many, lib.ndt_features,
                    lib.ndt_nn, lib.ndt_empty):
@@ -187,40 +204,57 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _inv_resolution(cg: CompactGrid) -> float:
+def _inv_resolution(resolution: float) -> float:
     """The twin divides by the resolution; on the card that is a product
     with the f32 reciprocal (csrc/ndt_kernels.cu, point_feature)."""
-    return float(np.float32(1.0) / np.float32(cg.resolution))
+    return float(np.float32(1.0) / np.float32(resolution))
 
 
-def _launch_window(name: str, poses, xy, mask, cg: CompactGrid, d1: float,
+def _launch_window(name: str, poses, grid_of, xy, mask, grids, d1: float,
                    d2: float, radius: int, values: int, out_shape: tuple,
                    tail: tuple = ()) -> torch.Tensor:
     """Check the operands `ndt_sgh` and `ndt_score_many` share, allocate
     the output and the per-block partial sums, launch; returns the
-    output."""
-    if cg.table is None or cg.cell_slot is None:
+    output. `grids` is one `CompactGrid` (with `grid_of` None) or a
+    `GridStack` (with `grid_of` [poses] int32); `xy` [N,2] / `mask` [N]
+    is one source, [G,N,2] / [G,N] a source row per grid."""
+    if isinstance(grids, GridStack):
+        g, lead = grids.grids, (grids.grids,)
+    elif grids.table is None or grids.cell_slot is None:
         raise ValueError(
             "CompactGrid has no window index (table, cell_slot): build it "
             "with compact.compact_grid or convert.compact_grid")
-    n, nc, k = xy.shape[0], poses.shape[0], cg.capacity
+    else:
+        g, lead = 1, ()
+    n, nc, k = xy.shape[-2], poses.shape[0], grids.capacity
     if not 1 <= nc <= MAX_POSES:
         raise ValueError(f"{nc} poses; the kernel takes 1..{MAX_POSES}")
+    rows = xy.dim() == 3
+    if rows and xy.shape[0] != g:
+        raise ValueError(f"{xy.shape[0]} source rows for {g} grids")
     blocks = -(-n // WINDOW_THREADS)
     partials = torch.empty((nc, blocks, values), dtype=torch.float32,
                            device=xy.device)
     out = torch.empty(out_shape, dtype=torch.float32, device=xy.device)
+    src_lead = (g,) if rows else ()
     _check(getattr(_load(), "ndt_" + name)(
-        _arg(xy, (n, 2)), _arg(mask, (n,), torch.bool),
-        _arg(poses, (nc, 3)), _arg(cg.origin, (2,)),
-        _arg(cg.table, (k, 8)),
-        _arg(cg.cell_slot, (cg.nx * cg.ny,), torch.int32),
+        _arg(xy, (*src_lead, n, 2)), _arg(mask, (*src_lead, n), torch.bool),
+        _arg(poses, (nc, 3)),
+        None if grid_of is None else _arg(grid_of, (nc,), torch.int32),
+        _arg(grids.origin, (*lead, 2)), _arg(grids.table, (*lead, k, 8)),
+        _arg(grids.cell_slot, (*lead, grids.nx * grids.ny), torch.int32),
         partials.data_ptr(), out.data_ptr(),
-        n, nc, cg.nx, cg.ny, int(radius),
-        _inv_resolution(cg), float(d1), -0.5 * d2, 50.0 / d2,
+        n, nc, grids.nx, grids.ny, int(radius), k, g, n if rows else 0,
+        _inv_resolution(grids.resolution), float(d1), -0.5 * d2, 50.0 / d2,
         *tail, _stream(xy),
     ), name)
     return out
+
+
+def _sgh_views(out):
+    """(E, grad, hess, matched) views of kernel 1's [..., 16] rows."""
+    return (out[..., 0], out[..., 2:5], out[..., 5:14].unflatten(-1, (3, 3)),
+            out[..., 1])
 
 
 def ndt_score_grad_hess(pose_rad, xy, mask, cg: CompactGrid, d1: float,
@@ -239,14 +273,11 @@ def ndt_score_grad_hess(pose_rad, xy, mask, cg: CompactGrid, d1: float,
                 for p in pose_rad]
         return tuple(torch.stack(part) for part in zip(*each))
     poses = pose_rad.reshape(-1, 3)
-    out = _launch_window("sgh", poses, xy, mask, cg, d1, d2, radius,
+    out = _launch_window("sgh", poses, None, xy, mask, cg, d1, d2, radius,
                          SGH_VALUES, (poses.shape[0], SGH_ROW),
                          tail=(-d1 * d2, float(d2)))
     ndt_score_grad_hess.launches += 1
-    if not batched:
-        out = out[0]
-    return (out[..., 0], out[..., 2:5],
-            out[..., 5:14].unflatten(-1, (3, 3)), out[..., 1])
+    return _sgh_views(out if batched else out[0])
 
 
 def ndt_scores(poses_rad, xy, mask, cg: CompactGrid, d1: float, d2: float,
@@ -260,9 +291,46 @@ def ndt_scores(poses_rad, xy, mask, cg: CompactGrid, d1: float, d2: float,
             ndt_negative_score_compact(p, xy, mask, cg, d1, d2, radius)
             for p in poses_rad
         ])
-    out = _launch_window("score_many", poses_rad, xy, mask, cg, d1, d2,
-                         radius, 1, (poses_rad.shape[0],))
+    out = _launch_window("score_many", poses_rad, None, xy, mask, cg, d1,
+                         d2, radius, 1, (poses_rad.shape[0],))
     ndt_scores.launches += 1
+    return out
+
+
+def ndt_score_grad_hess_grids(poses_rad, grid_index, xy, mask,
+                              gs: GridStack, d1: float, d2: float,
+                              radius: int = 1):
+    """(E [P], grad [P,3], hess [P,3,3], matched [P]) of pose p [P,3]
+    against grid `grid_index[p]` (int32 [P]) of the stack `gs`, one
+    ladder stage a call; `xy` [N,2] / `mask` [N] is one source for all
+    poses, [G,N,2] / [G,N] a source row per grid.
+
+    CUDA: kernel 1 with its grid axis, two launches; with one grid it
+    gives `ndt_score_grad_hess`'s bits. CPU: `compact.window_rows`."""
+    if not _route(xy):
+        out = window_rows(poses_rad, grid_index, xy, mask, gs, d1, d2,
+                          radius)
+    else:
+        out = _launch_window("sgh", poses_rad, grid_index, xy, mask, gs, d1,
+                             d2, radius, SGH_VALUES,
+                             (poses_rad.shape[0], SGH_ROW),
+                             tail=(-d1 * d2, float(d2)))
+        ndt_score_grad_hess_grids.launches += 1
+    return _sgh_views(out)
+
+
+def ndt_scores_grids(poses_rad, grid_index, xy, mask, gs: GridStack,
+                     d1: float, d2: float, radius: int = 1):
+    """E [P] of pose p against grid `grid_index[p]` of `gs`; the
+    operands as for `ndt_score_grad_hess_grids`.
+
+    CUDA: kernel 2 with its grid axis. CPU: `compact.window_rows`."""
+    if not _route(xy):
+        return window_rows(poses_rad, grid_index, xy, mask, gs, d1, d2,
+                           radius, derivs=False)
+    out = _launch_window("score_many", poses_rad, grid_index, xy, mask, gs,
+                         d1, d2, radius, 1, (poses_rad.shape[0],))
+    ndt_scores_grids.launches += 1
     return out
 
 
@@ -273,7 +341,7 @@ def kernel_point_features(poses_rad, xy, cg: CompactGrid) -> torch.Tensor:
     out = torch.empty((nc, n, 4), dtype=torch.float32, device=xy.device)
     _check(_load().ndt_features(
         _arg(xy, (n, 2)), _arg(poses_rad, (nc, 3)), _arg(cg.origin, (2,)),
-        out.data_ptr(), n, nc, _inv_resolution(cg), _stream(xy),
+        out.data_ptr(), n, nc, _inv_resolution(cg.resolution), _stream(xy),
     ), "features")
     return out
 
@@ -297,27 +365,36 @@ def _nn_blocks(device: torch.device, tiles: int, m: int) -> int:
     return max(1, min(chunks, -(-NN_WAVES * _sm_count[device] // tiles)))
 
 
-def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask,
-               fitness: bool) -> torch.Tensor:
-    """Check the operands, allocate the output and the scratch, launch
-    `nn_kernel` and `nn_finish_kernel`; returns d2 [N] or the fitness
-    scalar. N, M >= 1."""
-    n, m, device = src_xy.shape[0], tgt_xy.shape[0], src_xy.device
+def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness: bool = False,
+               argmin: bool = False):
+    """Check the operands, allocate the outputs and the scratch, launch
+    `nn_kernel` and its finish step over the batch rows of [B,N,2] /
+    [B,M,2] operands ([N,2] / [M,2]: one row). Returns d2 ([B,N] or
+    [N]), the fitness scalar, or (d2, idx). N, M >= 1."""
+    lead = tuple(src_xy.shape[:-2])
+    batch = src_xy.shape[0] if lead else 1
+    n, m, device = src_xy.shape[-2], tgt_xy.shape[-2], src_xy.device
     tiles = -(-n // NN_TILE)
-    blocks = _nn_blocks(device, tiles, m)
-    part = torch.empty((blocks, n), dtype=torch.float32, device=device)
-    live = torch.empty((tiles, blocks), dtype=torch.int32, device=device)
-    out = torch.empty(() if fitness else (n,), dtype=torch.float32,
+    blocks = _nn_blocks(device, tiles * batch, m)
+    part = torch.empty((batch, blocks, n), dtype=torch.float32, device=device)
+    part_idx = (torch.empty((batch, blocks, n), dtype=torch.int32,
+                            device=device) if argmin else None)
+    live = torch.empty((batch, tiles, blocks), dtype=torch.int32,
+                       device=device)
+    out = torch.empty(() if fitness else (*lead, n), dtype=torch.float32,
                       device=device)
+    idx = (torch.empty((*lead, n), dtype=torch.int32, device=device)
+           if argmin else None)
     _check(_load().ndt_nn(
-        _arg(src_xy, (n, 2)), _arg(src_mask, (n,), torch.bool),
-        _arg(tgt_xy, (m, 2)), _arg(tgt_mask, (m,), torch.bool),
-        part.data_ptr(), live.data_ptr(),
-        None if fitness else out.data_ptr(),
+        _arg(src_xy, (*lead, n, 2)), _arg(src_mask, (*lead, n), torch.bool),
+        _arg(tgt_xy, (*lead, m, 2)), _arg(tgt_mask, (*lead, m), torch.bool),
+        part.data_ptr(), None if part_idx is None else part_idx.data_ptr(),
+        live.data_ptr(), None if fitness else out.data_ptr(),
+        None if idx is None else idx.data_ptr(),
         out.data_ptr() if fitness else None,
-        n, m, blocks, _stream(src_xy),
+        n, m, batch, blocks, _stream(src_xy),
     ), "nn")
-    return out
+    return (out, idx) if argmin else out
 
 
 def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask):
@@ -334,7 +411,7 @@ def nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask):
     if src_xy.shape[0] == 0 or tgt_xy.shape[0] == 0:
         return torch.full((src_xy.shape[0],), BIG, dtype=torch.float32,
                           device=src_xy.device)
-    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, False)
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask)
     nn_sq_dists.launches += 1
     return out
 
@@ -350,16 +427,64 @@ def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask):
         return _fitness_plain(src_xy, src_mask, tgt_xy, tgt_mask)
     if src_xy.shape[0] == 0 or tgt_xy.shape[0] == 0:
         return torch.full((), BIG, dtype=torch.float32, device=src_xy.device)
-    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, True)
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness=True)
     fitness_score.launches += 1
+    return out
+
+
+def _check_batch(src_xy, tgt_xy):
+    if src_xy.dim() != 3 or tgt_xy.dim() != 3 \
+            or src_xy.shape[0] != tgt_xy.shape[0]:
+        raise ValueError(f"batched operands [B,N,2] and [B,M,2], got "
+                         f"{tuple(src_xy.shape)} and {tuple(tgt_xy.shape)}")
+
+
+def nn_sq_dists_batched(src_xy, src_mask, tgt_xy, tgt_mask):
+    """`nn_sq_dists` of B independent problems: [B,N,2], [B,N],
+    [B,M,2], [B,M] -> [B,N].
+
+    CUDA: kernel 3 with its batch axis, two launches for all B; each
+    row equal to the twin bit for bit."""
+    _check_batch(src_xy, tgt_xy)
+    if not _route(src_xy):
+        return _nn_plain(src_xy, src_mask, tgt_xy, tgt_mask)
+    b, n = src_xy.shape[:2]
+    if b == 0 or n == 0 or tgt_xy.shape[1] == 0:
+        return torch.full((b, n), BIG, dtype=torch.float32,
+                          device=src_xy.device)
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask)
+    nn_sq_dists_batched.launches += 1
+    return out
+
+
+def nn_argmin(src_xy, src_mask, tgt_xy, tgt_mask):
+    """(d2 [B,N], idx int32 [B,N]) of B independent problems ([B,N,2],
+    [B,N], [B,M,2], [B,M]): d2 is `nn_sq_dists`, idx the lowest index
+    of a valid target at that distance. A NaN distance wins: idx is then
+    the lowest index that gives a NaN. idx is 0 for a masked source and
+    for a source without a valid target.
+
+    CUDA: kernel 3's argmin form with its batch axis and its finish
+    step, two launches for all B; d2 equal to the twin bit for bit, idx
+    equal. CPU: `fitness.nn_argmin`."""
+    _check_batch(src_xy, tgt_xy)
+    if not _route(src_xy):
+        return _argmin_plain(src_xy, src_mask, tgt_xy, tgt_mask)
+    b, n = src_xy.shape[:2]
+    if b == 0 or n == 0 or tgt_xy.shape[1] == 0:
+        return (torch.full((b, n), BIG, dtype=torch.float32,
+                           device=src_xy.device),
+                torch.zeros((b, n), dtype=torch.int32, device=src_xy.device))
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, argmin=True)
+    nn_argmin.launches += 1
     return out
 
 
 # kernel name -> the wrappers that launch it
 WRAPPERS = {
-    "sgh": (ndt_score_grad_hess,),
-    "score_many": (ndt_scores,),
-    "nn": (nn_sq_dists, fitness_score),
+    "sgh": (ndt_score_grad_hess, ndt_score_grad_hess_grids),
+    "score_many": (ndt_scores, ndt_scores_grids),
+    "nn": (nn_sq_dists, fitness_score, nn_sq_dists_batched, nn_argmin),
 }
 
 
@@ -370,8 +495,15 @@ def reset_launch_counts():
 
 
 def launch_counts() -> dict:
+    """Launching calls by kernel, all of its wrappers together."""
     return {name: sum(fn.launches for fn in fns)
             for name, fns in WRAPPERS.items()}
+
+
+def wrapper_launch_counts() -> dict:
+    """Launching calls by wrapper name."""
+    return {fn.__name__: fn.launches
+            for fns in WRAPPERS.values() for fn in fns}
 
 
 reset_launch_counts()

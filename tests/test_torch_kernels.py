@@ -13,6 +13,13 @@ equals its twin bit for bit (the same f32 operations a pair, and a
 minimum is exact in any order) over sizes, prefix and scattered masks,
 mask views off the 16-byte grid, empty sides and NaN operands; its
 fitness mean agrees to rtol 1e-6 (one sum in another order).
+
+The loop-closure variants: the window kernels' grid axis (4 grids, 240
+poses, a grid index a pose) against its gather twin `window_rows`, and
+with one grid bit for bit against the single-grid call; the nearest-
+neighbour kernel's batch axis and argmin form at the verifier's shapes
+([4, 2048] against [4, 2048]) and at full load, distances bit for bit
+and indices equal, over ties, NaNs and masks.
 """
 
 import numpy as np
@@ -23,10 +30,10 @@ from ndt_slam_tpu_torch.core.points import PAD_COORD, pad_points
 from ndt_slam_tpu_torch.ndt import kernels
 from ndt_slam_tpu_torch.ndt.compact import (
     compact_grid, ndt_negative_score_compact, ndt_score_grad_hess_compact,
-    point_features,
+    point_features, stack_grids, window_rows,
 )
 from ndt_slam_tpu_torch.ndt.fitness import (
-    BIG, fitness_score_plain, nn_sq_dists,
+    BIG, fitness_score_plain, nn_argmin, nn_sq_dists,
 )
 from ndt_slam_tpu_torch.ndt.grid import build_grid
 from ndt_slam_tpu_torch.ndt.score import gauss_constants
@@ -277,8 +284,9 @@ def test_kernel_rejects_a_bad_operand(scene):
                            src.mask.to(torch.float32), scene["cg"],
                            scene["d1"], scene["d2"])
     with pytest.raises(ValueError, match="poses"):
-        kernels.ndt_scores(scene["pose"].repeat(129, 1), src.xy, src.mask,
-                           scene["cg"], scene["d1"], scene["d2"])
+        kernels.ndt_scores(scene["pose"].repeat(kernels.MAX_POSES + 1, 1),
+                           src.xy, src.mask, scene["cg"], scene["d1"],
+                           scene["d2"])
 
 
 @pytest.mark.parametrize("kernel", ["sgh", "score_many"])
@@ -291,3 +299,160 @@ def test_kernel_rejects_a_table_without_window_index(scene, kernel):
     pose = scene["pose"] if kernel == "sgh" else scene["pose"][None, :]
     with pytest.raises(ValueError, match="no window index"):
         fn(pose, src.xy, src.mask, bare, scene["d1"], scene["d2"])
+
+
+@pytest.fixture(scope="module")
+def grids(scene):
+    """Four 48x48 grids at 1.2 m (the verifier's coarse stage) around
+    four centres of the scene's target, stacked, and 240 poses (20 rows
+    of 12 line-search candidates), each on its row's grid."""
+    cuda = scene["pose"].device
+    tgt = scene["tgt"]
+    centres = [(0.0, 0.0), (3.0, -2.0), (-4.0, 1.5), (1.0, 5.0)]
+    cgs = [compact_grid(build_grid(tgt.xy, tgt.mask,
+                                   torch.tensor(c, device=cuda), 48, 48, 1.2,
+                                   min_pts=6), 2048) for c in centres]
+    rng = np.random.default_rng(17)
+    rows = torch.from_numpy(np.repeat(np.array(centres), 5, axis=0)
+                            + rng.uniform(-0.6, 0.6, (20, 2))).float()
+    rows = torch.cat([rows, torch.from_numpy(
+        rng.uniform(-0.1, 0.1, (20, 1))).float()], dim=1)
+    steps = torch.from_numpy(rng.uniform(-0.4, 0.4, (20, 12, 3))).float()
+    poses = (rows[:, None, :] + steps).reshape(240, 3).to(cuda)
+    gi = torch.arange(4, dtype=torch.int32).repeat_interleave(60).to(cuda)
+    d1, d2 = gauss_constants(1.2, 0.55)
+    return dict(cgs=cgs, gs=stack_grids(cgs), poses=poses, gi=gi, d1=d1,
+                d2=d2)
+
+
+@pytest.mark.parametrize("kernel", ["sgh", "score_many"])
+def test_grid_axis_matches_twin_on_card(scene, grids, kernel):
+    src, gs, poses, gi = scene["src"], grids["gs"], grids["poses"], \
+        grids["gi"]
+    d1, d2 = grids["d1"], grids["d2"]
+    want = window_rows(poses, gi, src.xy, src.mask, gs, d1, d2)
+    name = ("ndt_score_grad_hess_grids" if kernel == "sgh"
+            else "ndt_scores_grids")
+    before = kernels.wrapper_launch_counts()[name]
+    if kernel == "sgh":
+        E, g, H, m = kernels.ndt_score_grad_hess_grids(
+            poses, gi, src.xy, src.mask, gs, d1, d2)
+        torch.cuda.synchronize()
+        assert torch.equal(m, want[:, 1]) and float(m.sum()) > 240 * 50
+        np.testing.assert_allclose(_np(E), _np(want[:, 0]), rtol=1e-5)
+        np.testing.assert_allclose(_np(g), _np(want[:, 2:5]), rtol=1e-4,
+                                   atol=1e-3)
+        np.testing.assert_allclose(_np(H.reshape(-1, 9)),
+                                   _np(want[:, 5:14]), rtol=1e-3, atol=0.05)
+    else:
+        got = kernels.ndt_scores_grids(poses, gi, src.xy, src.mask, gs, d1,
+                                       d2)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(_np(got), _np(want[:, 0]), rtol=1e-5)
+    assert kernels.wrapper_launch_counts()[name] == before + 1
+
+
+def test_grid_axis_with_one_grid_gives_the_single_grid_bits(scene):
+    """One grid (grid index 0 everywhere) is the single-grid call bit for
+    bit; a source row per grid is the single-grid call on that row."""
+    src, cg, d1, d2 = scene["src"], scene["cg"], scene["d1"], scene["d2"]
+    cuda = src.xy.device
+    poses = scene["pose"][None, :] + torch.linspace(
+        -0.05, 0.05, 12, device=cuda)[:, None]
+    zeros = torch.zeros(12, dtype=torch.int32, device=cuda)
+    one = stack_grids([cg])
+    got = kernels.ndt_score_grad_hess_grids(poses, zeros, src.xy, src.mask,
+                                            one, d1, d2)
+    want = kernels.ndt_score_grad_hess(poses, src.xy, src.mask, cg, d1, d2)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert torch.equal(
+        kernels.ndt_scores_grids(poses, zeros, src.xy, src.mask, one, d1, d2),
+        kernels.ndt_scores(poses, src.xy, src.mask, cg, d1, d2))
+    other = pad_points(_np(src.xy[:1500]) + 0.02, 2048, cuda)
+    xy = torch.stack([src.xy, other.xy])
+    mask = torch.stack([src.mask, other.mask])
+    gi = torch.tensor([0, 1] * 6, dtype=torch.int32, device=cuda)
+    rows = kernels.ndt_scores_grids(poses, gi, xy, mask,
+                                    stack_grids([cg, cg]), d1, d2)
+    assert torch.equal(rows[0::2], kernels.ndt_scores(
+        poses[0::2].contiguous(), src.xy, src.mask, cg, d1, d2))
+    assert torch.equal(rows[1::2], kernels.ndt_scores(
+        poses[1::2].contiguous(), other.xy, other.mask, cg, d1, d2))
+
+
+def _assert_argmin_equals_twin(src, sm, tgt, tm):
+    before = kernels.wrapper_launch_counts()
+    d2, idx = kernels.nn_argmin(src, sm, tgt, tm)
+    dist = kernels.nn_sq_dists_batched(src, sm, tgt, tm)
+    torch.cuda.synchronize()
+    want_d2, want_idx = nn_argmin(src, sm, tgt, tm)
+    assert _same(d2, want_d2) and _same(dist, want_d2)
+    assert idx.dtype == torch.int32 and torch.equal(idx, want_idx)
+    for b in range(src.shape[0]):
+        assert _same(d2[b], nn_sq_dists(src[b], sm[b], tgt[b], tm[b]))
+    after = kernels.wrapper_launch_counts()
+    assert after["nn_argmin"] == before["nn_argmin"] + 1
+    assert after["nn_sq_dists_batched"] == before["nn_sq_dists_batched"] + 1
+    return d2, idx
+
+
+@pytest.mark.parametrize("shape", [(4, 2048, 2048), (1, 2048, 131072),
+                                   (3, 300, 5000)])
+def test_nn_argmin_equals_twin(cuda, shape):
+    b, n, m = shape
+    rng = np.random.default_rng(n + m)
+    src = torch.from_numpy(rng.uniform(-20, 20, (b, n, 2)).astype(
+        np.float32)).to(cuda)
+    tgt = torch.from_numpy(rng.uniform(-20, 20, (b, m, 2)).astype(
+        np.float32)).to(cuda)
+    if m == 131072:    # full load: every slot live
+        sm = torch.ones((b, n), dtype=torch.bool, device=cuda)
+        tm = torch.ones((b, m), dtype=torch.bool, device=cuda)
+    else:
+        sm = torch.from_numpy(rng.uniform(size=(b, n)) < 0.7).to(cuda)
+        tm = torch.from_numpy(rng.uniform(size=(b, m)) < 0.4).to(cuda)
+    _assert_argmin_equals_twin(src, sm, tgt, tm)
+
+
+@pytest.mark.parametrize("case", [
+    "lattice_ties", "duplicated_chunks", "no_target_row", "far_targets",
+    "nan_source", "nan_target", "masked_nan_target",
+])
+def test_nn_argmin_ties_nan_and_masks(cuda, case):
+    """Ties go to the lowest index whatever chunk or block holds them; a
+    NaN wins and the lowest NaN index stays; masked slots never count;
+    index 0 where nothing is chosen."""
+    rng = np.random.default_rng(7)
+    b, n, m = 3, 700, 3000
+    src = rng.integers(-10, 11, (b, n, 2)).astype(np.float32) + 0.5
+    tgt = rng.integers(-10, 11, (b, m, 2)).astype(np.float32)
+    sm = rng.uniform(size=(b, n)) < 0.8
+    tm = rng.uniform(size=(b, m)) < 0.5
+    if case == "duplicated_chunks":   # every target again 1024 slots later
+        tgt[:, 1024:2048] = tgt[:, :1024]
+        tm[:, 1024:2048] = tm[:, :1024]
+    elif case == "no_target_row":
+        tm[1] = False
+    elif case == "far_targets":       # farther than 1e12 from every source
+        tgt = (np.abs(tgt) + 1.0) * 2.0e6
+    elif case == "nan_source":
+        src[0, np.nonzero(sm[0])[0][0], 0] = np.nan
+    elif case in ("nan_target", "masked_nan_target"):
+        live = case == "nan_target"
+        hit = np.nonzero(tm[2] == live)[0]
+        tgt[2, hit[5], 1] = np.nan
+        tgt[2, hit[40], 0] = np.nan
+    args = [torch.from_numpy(a).to(cuda) for a in (src, sm, tgt, tm)]
+    d2, idx = _assert_argmin_equals_twin(*args)
+    if case == "no_target_row":
+        assert (d2[1] == BIG).all() and (idx[1] == 0).all()
+    elif case == "far_targets":
+        live = args[1]
+        assert (d2[live] == BIG).all() and bool((idx[live] > 0).any())
+    elif case == "nan_target":
+        first = int(np.nonzero(tm[2])[0][np.nonzero(
+            np.isnan(tgt[2, tm[2]]).any(axis=1))[0][0]])
+        assert bool(torch.isnan(d2[2][args[1][2]]).all())
+        assert bool((idx[2][args[1][2]] == first).all())
+    elif case == "masked_nan_target":
+        assert bool(torch.isfinite(d2).all())
