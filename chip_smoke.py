@@ -36,7 +36,16 @@ Phases, one line each (any failure exits non-zero):
      wider than the window; [reference] the first 15 frames at the small
      capacities on the card and on the CPU twins, lattice on, within
      0.05 m and 0.3 deg of each other;
-  5. [verify] the loop-closure verifier at the default config: the
+  5. [loop] all 500 frames with loop closure on the full rebuild
+     (suite.json's office_loop), launch counts set to 0 before the run:
+     ATE, accept rate, loops accepted, corrections, the rewrite's
+     counts, the back end's times, frames/s beside [main]'s, the five
+     largest loop-edge residuals after the last optimisation, and what
+     one correction costs (device operations and ms of the solve and of
+     a full map rewrite) (the verify resolved a check late is measured
+     in turns with the synchronous one by cli/profile_torch.py
+     --loop-verify-async);
+  6. [verify] the loop-closure verifier at the default config: the
      keyframes of the [main] run (every loop_keyframe_skip frames, with
      the chain model's position variance), the first check frame whose
      candidates are loop_max_candidates keyframes a loop apart, one row
@@ -49,11 +58,19 @@ Phases, one line each (any failure exits non-zero):
      (4 grids, 240 poses; with one grid bit for bit against the
      single-grid call), the nearest-neighbour kernel's batch axis and
      argmin form ([4, 2048] against [4, 2048], and at full load; ties
-     and NaN), each with its time, bound and library call;
-  6. [determinism] frames 0-29 twice on each grid path, and [resume]
+     and NaN), each with its time, bound and library call; [pgo] the
+     pose-graph solvers on the card against the CPU: the 4096-node
+     drifted sweep of tests/unit/test_pose_graph.py through
+     optimize_hierarchical, the 512-node sweep and [loop]'s final graph
+     through optimize and optimize_pcg, with ms and device operations a
+     solve;
+  7. [determinism] frames 0-29 twice on each grid path, and [resume]
      frames 0-29 with a checkpoint after frame 14 and the run continued
      from the loaded file, lattice on: poses bitwise equal, the loaded
-     lattice bitwise equal to the saved one.
+     lattice bitwise equal to the saved one; then with loops on, through
+     LOOP_TAIL frames past [loop]'s first correction, twice, and resumed
+     from a checkpoint taken right after that correction: poses bitwise
+     equal.
 The last line is the JSON result; the kernels' JSON line and the
 card's name and power limit come just before it.
 """
@@ -83,6 +100,10 @@ REAL_FRAME = 40            # frame whose registration feeds the checks
 DETERMINISM_FRAMES = 30
 LOOP_APART = 200           # frames between a [verify] frame and its keyframes
 PUSH = (0.5, -0.4, 5.0)    # the [verify] row pushed off: m, m, deg
+LOOP_TAIL = 10             # frames after the first correction in the loop runs
+PGO_TIMES = 2              # CUDA-event-timed solves a [pgo] row
+PGO_TOL_M = 0.01           # [pgo] card against CPU: metres, and
+PGO_TOL_RAD = 0.01         # radians, every node
 PROFILE_TRIES = 3          # profiler sessions before a count is believed
 SPINS = 8                  # spin kernels on each side of a profiled call
 SPIN_CYCLES = 100_000      # their length: about 50 us at 1980 MHz
@@ -157,15 +178,17 @@ def _profile_session(fn, calls: int):
             f"spins, {len(inner)} other events seen")
 
 
-def _device_events(fn, calls: int = 10, complete=None):
+def _device_events(fn, calls: int = 10, complete=None, warm: bool = True):
     """The device events of `calls` calls of fn() after one warm-up call
-    (see `_profile_session`). A session that lost an edge, or whose
-    events fail complete(events) (a count that comes out short only when
-    an event was dropped), is made again, up to PROFILE_TRIES sessions;
-    the last one is returned for the caller's own check."""
+    (none without `warm`: fn is warm already; see `_profile_session`).
+    A session that lost an edge, or whose events fail complete(events)
+    (a count that comes out short only when an event was dropped), is
+    made again, up to PROFILE_TRIES sessions; the last one is returned
+    for the caller's own check."""
     import torch
 
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
     for _ in range(PROFILE_TRIES):
         dev, ok, note = _profile_session(fn, calls)
@@ -788,16 +811,6 @@ def _d2h_copies_per_frame(cfg, frames, device, warm=40, window=20):
     return d2h / window, len(dev) / window, fe.n_grid_fallbacks
 
 
-def _pos_var(cov_deg) -> float:
-    """Largest eigenvalue of a pose covariance's 2x2 position block: the
-    drift the JAX back end adds up for the candidate radius
-    (ndt_slam_tpu/graph/backend.py, _pos_var)."""
-    a, b, c = float(cov_deg[0, 0]), float(cov_deg[0, 1]), float(cov_deg[1, 1])
-    h = 0.5 * (a + c)
-    return max(0.0, h + float(np.sqrt(max(0.0, (0.5 * (a - c)) ** 2
-                                              + b * b))))
-
-
 def _verify_inputs(cfg, frames, gt, fe, device):
     """The [verify] batch from the [main] run, as the JAX back end forms
     it: a keyframe every loop_keyframe_skip frames with the cumulative
@@ -812,6 +825,7 @@ def _verify_inputs(cfg, frames, gt, fe, device):
     from ndt_slam_tpu_torch.core import pose2
     from ndt_slam_tpu_torch.core.points import PAD_COORD, pad_points
     from ndt_slam_tpu_torch.graph import KeyframeStore, relative_pose_deg
+    from ndt_slam_tpu_torch.graph.backend import pos_var
 
     def scan(i):
         rs = fe._resample(frames[i].scan_xy, cfg.resample_space,
@@ -821,7 +835,7 @@ def _verify_inputs(cfg, frames, gt, fe, device):
     store = KeyframeStore(cfg)
     cum, loops, most = 0.0, [], (None, [])
     for i, pose in enumerate(fe.pose_history):
-        cum += _pos_var(fe.cov_history[i])
+        cum += pos_var(fe.cov_history[i])
         if i % max(1, cfg.loop_keyframe_skip) == 0:
             store.add(i, pose, scan(i), pos_var=cum)
         if i % max(1, cfg.loop_check_skip) == 0:
@@ -1211,11 +1225,11 @@ def _variant_rows(cfg, vin, syn):
     return rows
 
 
-def _loop_closure_phases(vin, syn):
-    """[variants] and [verify] in a process of their own: in one process,
-    a torch.profiler session after a large one (the frame loop's
-    [fetch], a verify) has come back with device events missing, and
-    these phases count device operations. The inputs go through a file;
+def _loop_closure_phases(vin, syn, office):
+    """[variants], [verify] and [pgo] in a process of their own: in one
+    process, a torch.profiler session after a large one (the frame
+    loop's [fetch], a verify) has come back with device events missing,
+    and these phases count device operations. The inputs go through a file;
     the child's lines are printed here. Returns the variants' rows, their
     launches those of the one verify run with the counts set to 0."""
     import torch
@@ -1224,6 +1238,7 @@ def _loop_closure_phases(vin, syn):
         path = os.path.join(tmp, "loop_closure_inputs.pt")
         torch.save({
             **vin, "src": (vin["src"].xy, vin["src"].mask),
+            "office_graph": tuple(office),
             "syn_scan": (syn["scan"].xy, syn["scan"].mask),
             "syn_tgt": (syn["tgt"].xy, syn["tgt"].mask),
         }, path)
@@ -1256,16 +1271,270 @@ def _loop_closure_child(path) -> int:
     device = vin["init"].device
     cfg = SlamConfig()
     kernels._load()
+    office = vin.pop("office_graph")
+    t0 = time.perf_counter()
     rows = _variant_rows(cfg, vin, syn)
+    t1 = time.perf_counter()
     counts = _check_verify(cfg, vin, device)
+    t2 = time.perf_counter()
+    pgo = _check_pgo(office)
+    print(f"[time] variants {t1 - t0:.1f} s, verify {t2 - t1:.1f} s, pgo "
+          f"{time.perf_counter() - t2:.1f} s", flush=True)
     wrapper = {"sgh_grids": "ndt_score_grad_hess_grids",
                "score_many_grids": "ndt_scores_grids",
                "nn_batched": "nn_sq_dists_batched",
                "nn_argmin": "nn_argmin"}
     for row in rows:
         row["launches"] = counts[wrapper[row["name"]]]
-    print(json.dumps({"variant_rows": rows}))
+    print(json.dumps({"variant_rows": rows, "pgo": pgo}))
     return 0
+
+
+def _loop_edge_residuals(be, gt, top: int = 5):
+    """The `top` largest loop-edge residuals at the back end's final node
+    poses (translation norm, m; rotation, deg), each with the edge's
+    frames, its measurement's distance from the ground truth's relative
+    pose and its information's weakest / strongest eigenvalue."""
+    import torch
+    from ndt_slam_tpu_torch.graph.pose_graph import edge_residual
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32))
+
+    rows = []
+    for i, j, z, om in be.loop_edges:
+        r = edge_residual(t(be.node_poses_rad[i]), t(be.node_poses_rad[j]),
+                          t(z)).numpy()
+        si, sj = be.node_sids[i], be.node_sids[j]
+        a, b = gt[si].astype(np.float64), gt[sj].astype(np.float64)
+        c, s_ = np.cos(np.radians(a[2])), np.sin(np.radians(a[2]))
+        d = b[:2] - a[:2]
+        z_gt = np.array([c * d[0] + s_ * d[1], -s_ * d[0] + c * d[1]])
+        w = np.linalg.eigvalsh(om.astype(np.float64))
+        rows.append((float(np.hypot(r[0], r[1])), float(np.degrees(abs(r[2]))),
+                     si, sj, float(np.hypot(*(z[:2] - z_gt))),
+                     float(w[0] / max(w[-1], 1e-30))))
+    rows.sort(key=lambda t: -t[0])
+    return rows[:top]
+
+
+def _run_loop_path(tag, frames, gt, cfg, device, fps_off):
+    """[loop]: one whole run with loop closure through `run_slam`, launch
+    counts set to 0 just before it and read just after; ATE, accept
+    rate, loops, corrections, the rewrite's counts, the back end's times,
+    frames/s beside `fps_off` (the same frames without loops, this
+    process), the largest loop-edge residuals after the last
+    optimisation. Returns (front end, launch counts, frames whose check
+    ran a correction)."""
+    import torch
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.pipeline.runner import run_slam
+
+    kernels.reset_launch_counts()
+    fe = run_slam(frames, cfg, device)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    n = len(fe.pose_history)
+    poses = fe.get_poses()
+    _require(n == len(frames) and np.isfinite(poses).all(),
+             f"[{tag}] {n} finite poses of {len(frames)} frames")
+    ate = ate_rmse(poses, gt[:n])
+    accept = float(np.mean([bool(m.get("successful")) for m in fe.metrics]))
+    loop_s = fe.metrics[-1]["wall_s"]
+    be = fe.backend
+    closed = [i for i, m in enumerate(fe.metrics) if m.get("loop_closed")]
+    split = {k: round(v / n, 3) for k, v in sorted(
+        fe.timer.ms.items(), key=lambda kv: -kv[1])}
+    print(f"[{tag}] {n} frames in {loop_s:.2f} s = {n / loop_s:.2f} frames/s "
+          f"(without loops in this process: {fps_off:.2f}); async verify "
+          f"{be.verify_async}; ATE {ate:.4f} m; accept {accept:.4f}; "
+          f"loops accepted {be.loops_accepted}; corrections "
+          f"{fe.n_corrections} (first at frame {closed[0] if closed else None}"
+          f"); keyframes {len(be.keyframes)}; remake_stats "
+          f"{fe.pcmap.remake_stats}; t_backend {fe.t_backend:.3f} s, "
+          f"t_verify {be.t_verify:.3f} s, t_optimize {be.t_optimize:.3f} s, "
+          f"t_remake {fe.t_remake:.3f} s; launches {counts}", flush=True)
+    print(f"[{tag}] stage ms a frame (card timeline): {json.dumps(split)}")
+    res = _loop_edge_residuals(be, gt)
+    print(f"[{tag}] the {len(res)} largest loop-edge residuals after the "
+          f"last optimisation (m, deg, frames, measurement's distance from "
+          f"the ground truth's relative pose m, information's weakest/"
+          f"strongest eigenvalue): " + "; ".join(
+              f"{a:.4f} m {b:.3f} deg {i}->{j} off {c:.4f} m ratio {d:.2e}"
+              for a, b, i, j, c, d in res), flush=True)
+    _require(ate < ATE_BOUND, f"[{tag}] ATE {ate} < {ATE_BOUND} m")
+    _require(be.loops_accepted >= 1 and fe.n_corrections >= 1,
+             f"[{tag}] a loop accepted and a correction run")
+    for name, c in counts.items():
+        _require(c > 0, f"[{tag}] kernel {name} launched on the loop path")
+    return fe, counts, closed
+
+
+def _rewrite_cost(fe):
+    """[loop] what one correction costs on the device: device operations
+    and CUDA-event ms of the dense solve of the run's final graph and of
+    a full map rewrite through the run's poses (every submap rebuilt)."""
+    import torch
+
+    be, pm = fe.backend, fe.pcmap
+    poses = np.stack(pm.poses)
+    calls = {"optimize_all": be.optimize_all,
+             "remake_maps, full": lambda: pm.remake_maps(
+                 poses, thresh_trans=-1.0, thresh_rot=-1.0)}
+    out = {}
+    for name, fn in calls.items():
+        ops = len(_device_events(fn, calls=1))
+        ms = _time_ms(fn, reps=3)
+        torch.cuda.synchronize()
+        out[name] = (ops, ms)
+    print(f"[loop] a correction's pieces on the run's final state: "
+          + "; ".join(f"{k} {v[0]} device operations, {v[1]:.2f} ms"
+                      for k, v in out.items())
+          + f" ({len(pm.submaps)} submaps, {len(be.node_sids)} nodes, "
+          f"{len(be.loop_edges)} loop edges)", flush=True)
+    return out
+
+
+def _check_pgo(office):
+    """[pgo]: the pose-graph solvers on the card against the CPU, within
+    PGO_TOL_M / PGO_TOL_RAD a node: the 4096-node drifted sweep of
+    tests/unit/test_pose_graph.py through optimize_hierarchical (its own
+    bound: under 1 m from the truth), the 512-node sweep through optimize
+    and optimize_pcg (its bound: the drift more than halved), and
+    office_loop's final graph from [loop] through both (`office`: its
+    PoseGraph's tensors, on the CPU). CUDA-event ms a solve, and device
+    operations a solve where they are some thousands (the two PCG runs
+    of the sweeps issue some 10^5)."""
+    import torch
+    from ndt_slam_tpu_torch.graph.pose_graph import (
+        PoseGraph, optimize, optimize_hierarchical, optimize_pcg, pack_graph,
+    )
+
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+
+    def gap(a, b):
+        d = np.asarray(a, np.float64) - np.asarray(b, np.float64)
+        return (float(np.abs(d[:, :2]).max()),
+                float(np.abs(np.arctan2(np.sin(d[:, 2]),
+                                        np.cos(d[:, 2]))).max()))
+
+    def row(name, solve, n, gt=None, bound=None, count=True):
+        """solve(device) -> [n,3] host poses. Without `count` the device
+        operations are not profiled: a profile of a solve of some 10^5
+        operations takes minutes to read back."""
+        t0 = time.perf_counter()
+        on_cpu = solve(cpu)
+        cpu_s = time.perf_counter() - t0
+        on_card = solve(cuda)
+        times = []
+        for _ in range(PGO_TIMES):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            solve(cuda)
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        ms = statistics.median(times)
+        ops = (len(_device_events(lambda: solve(cuda), calls=1, warm=False))
+               if count else None)
+        dxy, dth = gap(on_card, on_cpu)
+        line = (f"[pgo] {name}: card vs CPU max {dxy:.3g} m, {dth:.3g} rad; "
+                f"{ms:.2f} ms a solve on the card (CUDA events, median of "
+                f"{PGO_TIMES}), "
+                + (f"{ops} device operations a solve" if count
+                   else "device operations not profiled")
+                + f"; the CPU took {cpu_s:.2f} s")
+        if gt is not None:
+            err = [float(np.linalg.norm(p[:n, :2] - gt[:, :2], axis=1).max())
+                   for p in (on_card, on_cpu)]
+            line += (f"; max error from the truth {err[0]:.4f} m (card), "
+                     f"{err[1]:.4f} m (CPU), bound {bound:.4g} m")
+            _require(max(err) < bound, f"[pgo] {name} within its bound")
+        print(line, flush=True)
+        _require(np.isfinite(on_card).all() and dxy <= PGO_TOL_M
+                 and dth <= PGO_TOL_RAD,
+                 f"[pgo] {name}: card and CPU within {PGO_TOL_M} m, "
+                 f"{PGO_TOL_RAD} rad")
+        return {"name": name, "ms": ms, "device_ops": ops}
+
+    rows = []
+    gt, init, *edges = _sweep_fixture(4096, 256, 8)
+    rows.append(row("4096-node sweep, optimize_hierarchical",
+                    lambda d: optimize_hierarchical(init, *edges, device=d),
+                    4096, gt, 1.0, count=False))
+    gt, init, *edges = _sweep_fixture(512, 128, 4)
+    drift = float(np.linalg.norm(init[:, :2] - gt[:, :2], axis=1).max())
+    for name, fn in (("optimize", lambda g: optimize(g, iterations=20)),
+                     ("optimize_pcg", lambda g: optimize_pcg(
+                         g, iterations=20, cg_iters=1024, cg_tol=1e-4,
+                         precond_seg_len=32))):
+        rows.append(row(
+            f"512-node sweep, {name}",
+            lambda d, fn=fn: fn(pack_graph(init, *edges, d))[0]
+            .cpu().numpy()[:512], 512, gt, 0.5 * drift,
+            count=name == "optimize"))
+        rows.append(row(
+            f"office_loop's final graph ({int(office[1].sum())} nodes, "
+            f"{int(office[6].sum())} edges), {name}",
+            lambda d, fn=fn: fn(PoseGraph(*(t.to(d) for t in office)))[0]
+            .cpu().numpy(), None))
+    return rows
+
+
+def _sweep_fixture(n, row_len, loop_stride, noise=0.005, seed=1):
+    """tests/unit/test_pose_graph.py's boustrophedon sweep: (truth,
+    drifted start, chain z, chain information, loop i, loop j, loop z,
+    loop information)."""
+    rng = np.random.default_rng(seed)
+    pts = []
+    for r in range(n // row_len):
+        xs = np.arange(row_len) * 0.5
+        pts += [[x, r * 2.0] for x in (xs[::-1] if r % 2 else xs)]
+    pts = np.array(pts, np.float32)
+    head = np.zeros(n, np.float32)
+    head[:-1] = np.arctan2(np.diff(pts[:, 1]), np.diff(pts[:, 0]))
+    head[-1] = head[-2]
+    gt = np.concatenate([pts, head[:, None]], 1)
+
+    def rel(a, b):
+        c, s_ = np.cos(a[2]), np.sin(a[2])
+        d = b[:2] - a[:2]
+        return np.array([c * d[0] + s_ * d[1], -s_ * d[0] + c * d[1],
+                         np.arctan2(np.sin(b[2] - a[2]),
+                                    np.cos(b[2] - a[2]))], np.float32)
+
+    chain_z = np.stack([rel(gt[i], gt[i + 1])
+                        + rng.normal(0, noise, 3).astype(np.float32)
+                        for i in range(n - 1)])
+    chain_om = np.tile(np.eye(3, dtype=np.float32)[None] * 400, (n - 1, 1, 1))
+    li, lj, lz = [], [], []
+    for r in range(n // row_len - 1):
+        for c in range(0, row_len, loop_stride):
+            i = r * row_len + c
+            j = (r + 1) * row_len + (row_len - 1 - c if r % 2 == 0 else c)
+            li.append(i)
+            lj.append(j)
+            lz.append(rel(gt[i], gt[j]))
+    li, lj, lz = np.array(li, np.int32), np.array(lj, np.int32), np.stack(lz)
+    lom = np.tile(np.eye(3, dtype=np.float32)[None] * 400, (len(li), 1, 1))
+    init = np.zeros_like(gt)
+    init[0] = gt[0]
+    for i in range(n - 1):
+        z = chain_z[i]
+        c, s_ = np.cos(init[i, 2]), np.sin(init[i, 2])
+        init[i + 1] = [init[i, 0] + c * z[0] - s_ * z[1],
+                       init[i, 1] + s_ * z[0] + c * z[1], init[i, 2] + z[2]]
+    return gt, init, chain_z, chain_om, li, lj, lz, lom
+
+
+def _office_graph(be):
+    """The back end's final graph, packed on the CPU as
+    `GraphBackend.optimize_all` packs it for the dense solve."""
+    from ndt_slam_tpu_torch.graph.pose_graph import pack_graph
+
+    return pack_graph(np.stack(be.node_poses_rad), *be.edge_arrays(), "cpu")
 
 
 def _check_determinism(frames, device, paths):
@@ -1288,6 +1557,57 @@ def _check_determinism(frames, device, paths):
     return poses
 
 
+def _check_loop_determinism(frames, device, cfg, closed):
+    """[determinism] and [resume] with loops on: the frames up to
+    LOOP_TAIL after the [loop] run's first correction, twice, poses
+    bitwise equal and a correction in each; then the same frames from a
+    checkpoint taken right after that correction, poses bitwise equal to
+    the straight run and a rewrite after the resume when the [loop] run
+    had a second one in reach."""
+    import torch
+    from ndt_slam_tpu_torch.pipeline.checkpoint import load_checkpoint
+    from ndt_slam_tpu_torch.pipeline.runner import run_slam
+
+    _require(bool(closed), "[loop] ran a correction")
+    k = closed[0] + 1
+    n = min(len(frames), k + LOOP_TAIL)
+    short = cfg.replace(end_frame=n)
+    a = run_slam(frames, short, device)
+    b = run_slam(frames, short, device)
+    pa, pb = a.get_poses(), b.get_poses()
+    _require(pa.shape == (n, 3) and pa.tobytes() == pb.tobytes()
+             and a.n_corrections == b.n_corrections >= 1,
+             f"[determinism] loops on: frames 0-{n - 1} twice give bitwise "
+             f"equal poses and a correction")
+    print(f"[determinism] loops on, frames 0-{n - 1} twice ({a.n_corrections}"
+          f" corrections, the first at frame {closed[0]}, "
+          f"{a.backend.loops_accepted} loops accepted): poses bitwise equal",
+          flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "state.npz")
+        fe_k = run_slam(frames, cfg.replace(end_frame=k), device,
+                        checkpoint_path=ckpt)
+        loaded = load_checkpoint(ckpt, device, cfg.replace(end_frame=k))
+        _require(loaded.cnt == k and fe_k.n_corrections >= 1
+                 and loaded.backend.loops_accepted
+                 == fe_k.backend.loops_accepted
+                 and torch.equal(torch.stack(loaded.backend.keyframes.scan_xy),
+                                 torch.stack(fe_k.backend.keyframes.scan_xy)),
+                 "[resume] the loaded back end equals the saved one")
+        size = os.path.getsize(ckpt)
+        c = run_slam(frames, short, device, checkpoint_path=ckpt,
+                     resume=True, checkpoint_save=False)
+    pc = c.get_poses()
+    _require(pc.tobytes() == pa.tobytes(),
+             f"[resume] loops on: a run resumed from the checkpoint of frame "
+             f"{k - 1} gives the straight run's poses bit for bit")
+    print(f"[resume] loops on: checkpoint after frame {k - 1}, the first "
+          f"correction ({size} bytes, {len(loaded.backend.keyframes)} "
+          f"keyframes), frames {k}-{n - 1} from the loaded file "
+          f"({c.n_corrections} corrections after the resume): poses bitwise "
+          f"equal", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1308,6 +1628,13 @@ def main() -> int:
     from ndt_slam_tpu_torch.pipeline.runner import run_slam
 
     t_start = time.perf_counter()
+    t_lap = [t_start]
+
+    def lap(phase):
+        now = time.perf_counter()
+        print(f"[time] {phase}: {now - t_lap[0]:.1f} s", flush=True)
+        t_lap[0] = now
+
     smi = _nvidia_smi()
     device = torch.device("cuda", 0)
     kind = torch.cuda.get_device_name(0)
@@ -1341,6 +1668,7 @@ def main() -> int:
     print(f"[launch] an empty kernel: {event_us:.2f} us from before its "
           f"launch to its end (CUDA events, median of 50), {device_us:.2f} "
           f"us of device time (profiler)", flush=True)
+    lap("device, build, kernels")
 
     # 4. the main paths at the default capacities, every frame: the full
     # rebuild (what -1 resolves to on cuda) and the incremental lattice
@@ -1351,6 +1679,7 @@ def main() -> int:
     for row in rows:
         row["launches"] = counts_full[row["name"]]
         row["launches_lattice"] = counts[row["name"]]
+    lap("main, main-inc")
 
     _check_lattice(inc, frames, device)
 
@@ -1392,13 +1721,29 @@ def main() -> int:
           f"twins: max {dxy:.3g} m, {dth:.3g} deg", flush=True)
     _require(on_card.shape == (15, 3) and dxy <= 0.05 and dth <= 0.3,
              "card and CPU twins agree on the first 15 frames")
+    lap("lattice, fetch, escape, reference")
 
-    # 5. the loop-closure verifier on the [main] run's keyframes, then
-    # the kernel variants it runs against their twins at its shapes
+    # 5. loop closure, all 500 frames on the full rebuild, verify
+    # resolved at once and then a check late; what a correction costs
+    loop = full.replace(loop_enable=True)
+    fps_off = len(fe_full.pose_history) / fe_full.metrics[-1]["wall_s"]
+    fe_loop, counts_loop, closed = _run_loop_path("loop", frames, gt, loop,
+                                                  device, fps_off)
+    for row in rows:
+        row["launches_loop"] = counts_loop[row["name"]]
+    office = _office_graph(fe_loop.backend)
+    _rewrite_cost(fe_loop)
+    lap("loop")
+
+    # 6. the loop-closure verifier on the [main] run's keyframes, the
+    # kernel variants it runs against their twins at its shapes, and the
+    # pose-graph solvers on the card against the CPU
     rows += _loop_closure_phases(
-        _verify_inputs(cfg, frames, gt, fe_full, device), scenes["synthetic"])
+        _verify_inputs(cfg, frames, gt, fe_full, device), scenes["synthetic"],
+        office)
+    lap("variants, verify, pgo (child process)")
 
-    # 6. determinism on both grid paths: frames 0-29 twice; resume on the
+    # 7. determinism on both grid paths: frames 0-29 twice; resume on the
     # lattice path: a checkpoint after frame 14 and the run continued from
     # the loaded file; bitwise equal poses
     short = inc.replace(end_frame=DETERMINISM_FRAMES)
@@ -1422,6 +1767,10 @@ def main() -> int:
     print(f"[resume] checkpoint after frame 14 ({size} bytes), frames 15-29 "
           f"from the loaded file: poses and lattice bitwise equal",
           flush=True)
+    lap("determinism, resume")
+    # and with loops on, through the first correction
+    _check_loop_determinism(frames, device, loop, closed)
+    lap("determinism, resume with loops")
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here", flush=True)

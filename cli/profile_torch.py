@@ -8,6 +8,7 @@ share, and the device time of this repository's kernels by name.
   python cli/profile_torch.py --root build/parent  # another checkout
   python cli/profile_torch.py --compare build/parent --pairs 10
   python cli/profile_torch.py --incremental-grid --pairs 10
+  python cli/profile_torch.py --loop-verify-async --pairs 10
 
 --root names the checkout whose `ndt_slam_tpu_torch` is profiled (the
 log is always read from this one). --compare measures two checkouts in
@@ -18,7 +19,10 @@ medians, and how many pairs the --root side won. Unpack the other
 commit with `git archive` into a directory that .gitignore lists.
 --incremental-grid measures the two grid paths of the --root checkout
 the same way (ndt_incremental_grid = 1 against 0, whole runs in turns),
-and then profiles the steady window of each.
+and then profiles the steady window of each. --loop-verify-async
+measures office_loop with loop closure (full rebuild) the same way,
+the verify resolved a check late (loop_verify_async = 1) against at
+once (0), with each run's back-end times.
 
 The busy share is the summed duration of the device events of the
 window (one stream, so they do not overlap) over the wall time of the
@@ -86,8 +90,6 @@ def _compare(sides: dict, pairs: int, frames, card: str) -> dict:
     device = torch.device("cuda", 0)
     names = list(sides)
     runs = {name: [] for name in names}
-    keys = ("frames_per_s", "grid_ms", "align_ms", "fuse_ms", "fitness_ms",
-            "map_ms", "host_ms", "other_ms")
 
     def one(name):
         mods, overrides = sides[name]
@@ -99,9 +101,15 @@ def _compare(sides: dict, pairs: int, frames, card: str) -> dict:
         torch.cuda.synchronize()
         n = len(fe.pose_history)
         ms = {k: v / n for k, v in fe.timer.ms.items()}
-        out = {k: ms[k[:-3]] for k in keys[1:-1]}
+        out = {f"{k}_ms": v for k, v in ms.items()}
         out["frames_per_s"] = n / fe.metrics[-1]["wall_s"]
         out["other_ms"] = sum(ms.values()) - ms["align"]
+        be = getattr(fe, "backend", None)
+        if be is not None:
+            out.update(t_verify_s=be.t_verify, t_optimize_s=be.t_optimize,
+                       t_remake_s=fe.t_remake,
+                       loops_accepted=be.loops_accepted,
+                       corrections=fe.n_corrections)
         return out
 
     for name in names:                                   # warm-up, build
@@ -112,6 +120,8 @@ def _compare(sides: dict, pairs: int, frames, card: str) -> dict:
             runs[name].append(one(name))
     a, b = names
     out = {"card": card, "pairs": pairs, "runs": runs}
+    keys = sorted(set.intersection(*(set(r) for rs in runs.values()
+                                     for r in rs)))
     for key in keys:
         out["median_" + key] = {
             name: statistics.median(r[key] for r in runs[name])
@@ -215,9 +225,12 @@ def main() -> int:
     ap.add_argument("--incremental-grid", action="store_true",
                     help="measure the lattice path and the full rebuild "
                          "of --root in turns, then profile each")
+    ap.add_argument("--loop-verify-async", action="store_true",
+                    help="measure office_loop with loops, the verify "
+                         "resolved a check late against at once, in turns")
     ap.add_argument("--pairs", type=int, default=10,
-                    help="pairs of whole runs for --compare and "
-                         "--incremental-grid")
+                    help="pairs of whole runs for --compare, "
+                         "--incremental-grid and --loop-verify-async")
     ap.add_argument("--warm", type=int, default=40,
                     help="frames before the window")
     ap.add_argument("--window", type=int, default=50,
@@ -254,6 +267,12 @@ def main() -> int:
         for name, (mods, overrides) in sides.items():
             print(json.dumps(_profile(mods, overrides, frames, gt, args,
                                       f"{label} ({name})", card)))
+        return 0
+    if args.loop_verify_async:
+        loop = {"loop_enable": True, "ndt_incremental_grid": 0}
+        sides = {"async": (tree, {**loop, "loop_verify_async": 1}),
+                 "sync": (tree, {**loop, "loop_verify_async": 0})}
+        print(json.dumps(_compare(sides, args.pairs, frames, card)))
         return 0
     print(json.dumps(_profile(tree, {}, frames, gt, args, label, card)))
     return 0

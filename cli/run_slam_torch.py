@@ -10,8 +10,13 @@ Examples:
       --out out/ --checkpoint out/state.npz --resume
   python cli/run_slam_torch.py --simulate 120 --out out/ --device cpu
 
+  python cli/run_slam_torch.py --log tests/data/office_loop.clf \
+      --format carmen --out out/ --gt tests/data/office_loop.gt --loop --viz
+
 Writes poses.txt, poses_full.txt, map.pcd, submap_NNN.pcd,
-metrics.jsonl and summary.json into --out; with --gt (or --simulate)
+metrics.jsonl and summary.json into --out (and map.png with --viz,
+viz_NNNNN.png with --viz-every); --loop turns on loop closure and the
+pose-graph back end, and summary.json then holds its counts and times; with --gt (or --simulate)
 summary.json holds the ATE of the trajectory and of the raw odometry,
 both against the ground-truth rows of the processed frames (from
 --start-frame on). --device defaults to cuda
@@ -49,6 +54,16 @@ def main():
     ap.add_argument("--start-frame", type=int)
     ap.add_argument("--end-frame", type=int)
     ap.add_argument("--sidelidar", action="store_true")
+    ap.add_argument("--loop", action="store_true",
+                    help="enable loop closure + pose-graph backend")
+    ap.add_argument("--viz", action="store_true",
+                    help="render the final map + trajectory + loop "
+                         "edges to <out>/map.png")
+    ap.add_argument("--viz-every", type=int, nargs="?", const=-1,
+                    default=0,
+                    help="also render <out>/viz_NNNNN.png every N "
+                         "frames; bare --viz-every renders every "
+                         "draw_skip frames")
     ap.add_argument("--checkpoint",
                     help="checkpoint file (.npz) to save SLAM state to")
     ap.add_argument("--checkpoint-every", type=int, default=0,
@@ -88,6 +103,8 @@ def main():
         overrides["end_frame"] = args.end_frame
     if args.sidelidar:
         overrides["sidelidar"] = True
+    if args.loop:
+        overrides["loop_enable"] = True
     cfg = SlamConfig().replace(**overrides)
 
     true_poses = read_carmen_gt(args.gt) if args.gt else None
@@ -116,7 +133,8 @@ def main():
     fe = run_slam(frames, cfg, device, out_dir=args.out,
                   metrics_path=os.path.join(args.out, "metrics.jsonl"),
                   verbose=args.verbose, checkpoint_path=args.checkpoint,
-                  checkpoint_every=args.checkpoint_every, resume=args.resume)
+                  checkpoint_every=args.checkpoint_every, resume=args.resume,
+                  viz_every=args.viz_every, viz_final=args.viz)
     summary = {
         "frames": len(fe.pose_history),
         "device": str(device),
@@ -130,6 +148,17 @@ def main():
             1.0 if m.get("successful") else 0.0 for m in fe.metrics
         ])) if fe.metrics else 0.0,
     }
+    if fe.backend is not None:
+        summary.update({
+            "loops_accepted": fe.backend.loops_accepted,
+            "corrections": fe.n_corrections,
+            "keyframes": len(fe.backend.keyframes),
+            "t_backend_s": round(fe.t_backend, 2),
+            "t_verify_s": round(fe.backend.t_verify, 2),
+            "t_optimize_s": round(fe.backend.t_optimize, 2),
+            "t_remake_s": round(fe.t_remake, 2),
+            "remake_stats": fe.pcmap.remake_stats,
+        })
     if fe.n_grid_fallbacks:
         # the JAX CLI's key, written only when a window escaped
         summary["grid_fallbacks"] = fe.n_grid_fallbacks

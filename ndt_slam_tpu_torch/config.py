@@ -9,9 +9,9 @@ device of the tensors the caller passes (CUDA tensors go to the
 kernels of `ndt/kernels.py`, CPU tensors to their plain twins), and a
 setting whose "auto" value depends on the device is resolved by the
 caller that knows it (`resolved_ndt_incremental_grid(device_type)`,
-`resolved_loop_verify_async(device_type)`). Features not ported yet
-(the loop-closure back end, the pipelined front end) resolve to off;
-`FrontEnd` refuses a config that forces them on.
+`resolved_loop_verify_async(device_type)`). The pipelined front end is
+not ported yet: its depth resolves to 0 and `FrontEnd` refuses a config
+that forces it on.
 """
 
 from __future__ import annotations
@@ -97,8 +97,7 @@ class SlamConfig:
     # ---- numerics ----
     dtype: Any = dataclasses.field(default="float32")
 
-    # ---- loop closure / pose graph: the verifier and the keyframe
-    # store are ported (graph/), the back end is not ----
+    # ---- loop closure / pose graph (graph/) ----
     loop_enable: bool = False
     loop_radius: float = 5.0
     loop_drift_gain: float = 3.0
@@ -162,9 +161,11 @@ class SlamConfig:
         """Whether loop verification on a device of `device_type`
         ("cuda", "cpu") resolves one check cycle late. 0/1 force; -1 is
         off on both: off on "cpu" as in the JAX package, and off on
-        "cuda" until the back end that dispatches verifications is
-        ported and its asynchronous path measured on the card (the JAX
-        package resolves -1 to on for its accelerator)."""
+        "cuda" because there it does not pay: a verify is bound by its
+        launches on the host, which resolving late does not hide, and
+        in turns on an H100 the late path lost 7 of 10 pairs of
+        office_loop runs (PERF.md has the runs; the JAX package resolves
+        -1 to on for its accelerator)."""
         if self.loop_verify_async >= 0:
             return bool(self.loop_verify_async)
         return False

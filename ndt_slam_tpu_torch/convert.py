@@ -8,8 +8,8 @@ whose map and carries are restored from the fields of the checkpoint
 format (`.npz` arrays and a JSON manifest) that both
 `ndt_slam_tpu.pipeline.checkpoint` and the port's `pipeline.checkpoint`
 write. `frontend_from_state` is the one reader of that format
-(`pipeline.checkpoint.load_checkpoint` is built on it); it refuses
-loop-closure backend state (not ported).
+(`pipeline.checkpoint.load_checkpoint` is built on it), the
+loop-closure back end's state included.
 """
 
 from __future__ import annotations
@@ -96,16 +96,20 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
     `.npz` arrays, `meta` the JSON manifest. Without `cfg` the
     manifest's config is taken. A saved moment lattice is restored as it
     is (a rebuild would sum in another order); one of another size than
-    `cfg` gives is left out, and the map rebuilds it on first use."""
-    backend = [k for k in arrays if k.startswith(_BACKEND_PREFIXES)]
-    if meta.get("backend") is not None or backend:
-        raise ValueError(
-            "checkpoint holds loop-closure backend state "
-            f"({backend or 'manifest'}), which the port does not have"
-        )
+    `cfg` gives is left out, and the map rebuilds it on first use.
+
+    The back end's state is restored into the front end's back end; a
+    file that holds it for a config without `loop_enable` is refused
+    (resuming with loops off would drop the graph)."""
     device = torch.device(device)
     if cfg is None:
         cfg = SlamConfig.from_dict(stored_config(meta))
+    backend = [k for k in arrays if k.startswith(_BACKEND_PREFIXES)]
+    if (meta.get("backend") is not None or backend) and not cfg.loop_enable:
+        raise ValueError(
+            "checkpoint holds loop-closure backend state "
+            f"({backend or 'manifest'}), but the config has loop_enable off"
+        )
     fe = FrontEnd(cfg, device)
     fe.cnt = int(meta["cnt"])
     fe.metrics = list(meta["metrics"])
@@ -128,6 +132,9 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
         np.asarray(arrays[f"local_scan_{i}"], np.float32)
         for i in range(int(meta["pcmap"].get("n_local_scans", 0)))
     ]
+    # the device scan cache stays index-aligned with the host scans; a
+    # rewrite pads and uploads a restored frame when it first needs it
+    pm.local_scans_dev = [None] * len(pm.local_scans)
     if "pcmap_mom" in arrays:
         B = cfg.resolved_grid_mom_cells
         if arrays["pcmap_mom"].shape[0] == B * B:
@@ -153,4 +160,43 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
                                           arrays[f"sm{si}_final_mask"],
                                           device)
         pm.submaps.append(sm)
+    if meta.get("backend") is not None:
+        _restore_backend(fe.backend, arrays, meta["backend"], device)
     return fe
+
+
+def _restore_backend(be, arrays: Mapping[str, np.ndarray], bm: Mapping,
+                     device) -> None:
+    """The back end's graph, counters and keyframes from checkpoint
+    fields; the keyframe scans go to `device` in two copies (points,
+    masks), each row a view."""
+    be.node_sids = [int(s) for s in bm["node_sids"]]
+    be.node_poses_rad = [p.astype(np.float32)
+                         for p in arrays["be_node_poses"]]
+    be.loops_accepted = int(bm["loops_accepted"])
+    # the drift accumulator and the deferred-optimisation state resume
+    # exactly, or the candidate radius and the correction cadence change
+    be._cum_pos_var = float(bm.get("cum_pos_var", 0.0))
+    be._pending_edges = int(bm.get("pending_edges", 0))
+    be._last_opt_node = int(bm.get("last_opt_node", -(10 ** 9)))
+    be.odom_edges = [
+        (row[:3].astype(np.float32),
+         row[3:12].reshape(3, 3).astype(np.float32))
+        for row in arrays["be_odom_edges"]
+    ]
+    be.loop_edges = [
+        (int(row[0]), int(row[1]), row[2:5].astype(np.float32),
+         row[5:14].reshape(3, 3).astype(np.float32))
+        for row in arrays["be_loop_edges"]
+    ]
+    kf = be.keyframes
+    kf.sids = [int(s) for s in bm["kf_sids"]]
+    kf.pos_var = [float(v) for v in bm.get("kf_pos_var",
+                                           [0.0] * len(kf.sids))]
+    kf.poses_deg, kf.scan_xy, kf.scan_mask = [], [], []
+    if kf.sids:
+        kf.poses_deg = [p.astype(np.float32) for p in arrays["kf_poses"]]
+        kf.scan_xy = list(_t(arrays["kf_scan_xy"], device,
+                             np.float32).unbind(0))
+        kf.scan_mask = list(_t(arrays["kf_scan_mask"], device,
+                               bool).unbind(0))

@@ -26,10 +26,28 @@ def segment_sum_sorted(rows: torch.Tensor, seg: torch.Tensor,
     )
 
 
+class SortedSegments:
+    """Segment ids `seg` [N] in [0, num_segments], sorted once (stable):
+    `sum(rows)` then gives the [num_segments, C] sums of rows [N, C] by
+    id, each segment summing its rows in row order, in two operations
+    (a gather and the segment reduce). For scatters whose ids stay
+    fixed over many calls, such as a pose graph's edge endpoints."""
+
+    def __init__(self, seg: torch.Tensor, num_segments: int):
+        sseg, self.order = torch.sort(seg.to(torch.int64), stable=True)
+        bounds = torch.arange(num_segments + 1, device=seg.device,
+                              dtype=sseg.dtype)
+        self.offsets = torch.searchsorted(sseg, bounds)
+
+    def sum(self, rows: torch.Tensor) -> torch.Tensor:
+        return torch.segment_reduce(
+            rows.index_select(0, self.order), "sum", offsets=self.offsets,
+            axis=0, unsafe=True
+        )
+
+
 def segment_sum(rows: torch.Tensor, seg: torch.Tensor,
                 num_segments: int) -> torch.Tensor:
     """[num_segments, C] sums of `rows` [N, C] by id `seg` [N] in
     [0, num_segments]; each segment sums its rows in row order."""
-    sseg, order = torch.sort(seg.to(torch.int64), stable=True)
-    return segment_sum_sorted(rows.index_select(0, order), sseg,
-                              num_segments)
+    return SortedSegments(seg, num_segments).sum(rows)

@@ -1,6 +1,5 @@
 """Submap-structured point-cloud map (port of
-`ndt_slam_tpu.mapping.pointcloud_map`, the parts the scan-to-map loop
-runs).
+`ndt_slam_tpu.mapping.pointcloud_map`).
 
 Device side: appends, the interior dynamic-removal pass, concatenation
 and the voxel filter on fixed-capacity buffers, and the incremental
@@ -18,6 +17,15 @@ Behaviour kept from the reference (as in the JAX package):
 - interior scan i+1 is filtered against candidates from
   diff(scan_i ∪ scan_{i+2} -> scan_{i+1}), once, when scan i+2 arrives.
 
+After a loop closure `remake_maps` rewrites the map through the
+corrected poses, incrementally: submap boundaries stay at the frame
+ranges they were built with, and a closed submap is rebuilt only if a
+pose it depends on moved past `remake_thresh_trans/rot`. A rebuild
+replays the submap's whole add_scan sequence on the device at once
+(`_rebuild_submap_fused`): every interior dynamic-removal window of the
+submap in one batched pass, one call of the nearest-neighbour kernel's
+batch axis, and the buffer filled in the forward order.
+
 Buffer order is part of the contract: `_append` writes at the running
 count, `voxel_filter` enumerates voxels from slot 0 and `_concat`
 splices b's valid points right after a's valid prefix. A masked write
@@ -33,7 +41,11 @@ import numpy as np
 import torch
 
 from ndt_slam_tpu_torch.config import SlamConfig
-from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer, compact
+from ndt_slam_tpu_torch.core.angles import sub_deg
+from ndt_slam_tpu_torch.core.points import (
+    PAD_COORD, PointBuffer, compact, pad_points,
+)
+from ndt_slam_tpu_torch.core.pose2 import global_points
 from ndt_slam_tpu_torch.mapping.dynamic import process_interior_scan
 from ndt_slam_tpu_torch.mapping.voxel import voxel_filter
 from ndt_slam_tpu_torch.ndt.grid import moments_abs
@@ -152,6 +164,74 @@ def _rebuild_mom(prev: PointBuffer, proc: PointBuffer, mom_anchor, *,
     return mom
 
 
+def _rebuild_submap_fused(scans_xy, scans_mask, poses_deg, active,
+                          carried, *, remove_moving: bool, is_first: bool,
+                          cap_sub: int, resol: float, thre: float,
+                          leaf: float, do_close: bool):
+    """Replay a whole submap's add_scan sequence at once.
+
+    scans_xy [n,S,2] / scans_mask [n,S]: sensor-frame scans (padded
+    along n); poses_deg [n,3] the corrected poses; active [n] (host
+    bool) real scan vs padding; carried [n] (host bool) seeded from the
+    previous submap. The interior dynamic-removal pass depends only on
+    its own 3-scan window, so all windows run as one batched pass, and
+    the buffer fills with a single append of the rows in the forward
+    order (append_i, interior_i interleaved). Branches follow
+    Submap.step_flags/add_scan.
+
+    Returns (proc, proc_count, proj_xy [n,S,2], proj_mask [n,S],
+    closed); closed is the voxel-filtered final cloud with `do_close`,
+    else None."""
+    n = scans_xy.shape[0]
+    dev = scans_xy.device
+    act = torch.from_numpy(np.asarray(active, bool)).to(dev)
+    proj_mask = scans_mask & act[:, None]
+    proj = global_points(poses_deg, scans_xy)
+    proj = torch.where(proj_mask[..., None], proj, PAD_COORD)
+
+    idx = np.arange(n)
+    if remove_moving:
+        append_f = active & (idx == 0) if is_first else np.zeros(n, bool)
+        interior_f = active & (idx >= 2)
+    else:
+        append_f = active & (True if is_first else ~carried)
+        interior_f = np.zeros(n, bool)
+    append_f = torch.from_numpy(append_f).to(dev)
+
+    if remove_moving:
+        interior_f = torch.from_numpy(interior_f).to(dev)
+        pad_xy = torch.full_like(proj[:2], PAD_COORD)
+        pad_m = torch.zeros_like(proj_mask[:2])
+        prev1 = PointBuffer(torch.cat([pad_xy[:1], proj[:-1]]),
+                            torch.cat([pad_m[:1], proj_mask[:-1]]))
+        prev2 = PointBuffer(torch.cat([pad_xy, proj[:-2]]),
+                            torch.cat([pad_m, proj_mask[:-2]]))
+        processed = process_interior_scan(prev2, prev1,
+                                          PointBuffer(proj, proj_mask),
+                                          resol, thre)
+        all_xy = torch.stack([proj, processed.xy], dim=1)
+        all_mask = torch.stack([proj_mask & append_f[:, None],
+                                processed.mask & interior_f[:, None]], dim=1)
+    else:
+        all_xy = proj[:, None]
+        all_mask = (proj_mask & append_f[:, None])[:, None]
+    proc, count = _append(
+        PointBuffer.empty(cap_sub, dev),
+        torch.zeros((), dtype=torch.int32, device=dev),
+        PointBuffer(all_xy.reshape(-1, 2), all_mask.reshape(-1)),
+    )
+    closed = None
+    if do_close:
+        cloud = proc
+        if remove_moving:
+            # the newest raw scan rides along: the last active slot
+            last = max(int(np.sum(active)) - 1, 0)
+            cloud = _concat(proc, PointBuffer(proj[last], proj_mask[last]),
+                            cap_sub)
+        closed = voxel_filter(cloud, leaf)
+    return proc, count, proj, proj_mask, closed
+
+
 class Submap:
     """One submap: accumulated processed cloud + the raw 3-scan tail."""
 
@@ -231,9 +311,14 @@ class PointCloudMap:
         self.submaps: List[Submap] = [Submap(cfg, 0.0, 0, self.device)]
         self.last_pose = np.zeros(3, dtype=np.float32)
         self.last_scan: Optional[PointBuffer] = None
-        # raw sensor-frame scans, host copies (the checkpoint carries
-        # them for the map rewrite after a loop closure)
+        # raw sensor-frame scans for the map rewrite after a loop
+        # closure: the host copies are canonical (the checkpoint carries
+        # them); local_scans_dev caches each frame's padded device
+        # buffer, so that a rewrite stacks device references instead of
+        # uploading. An entry may be None (after a checkpoint load);
+        # _rebuild_submap pads and uploads it then, once.
         self.local_scans: List[np.ndarray] = []
+        self.local_scans_dev: List[Optional[PointBuffer]] = []
         # registration target left by the last fused add_points (valid
         # until the next map mutation)
         self._cached_target: Optional[PointBuffer] = None
@@ -246,6 +331,7 @@ class PointCloudMap:
         self._mom: Optional[torch.Tensor] = None
         self._mom_anchor: Optional[torch.Tensor] = None
         self._mom_valid = False
+        self.remake_stats = {"calls": 0, "rebuilt": 0, "kept": 0}
 
     def add_pose(self, pose_deg: np.ndarray):
         pose_deg = np.asarray(pose_deg, dtype=np.float32)
@@ -390,6 +476,108 @@ class PointCloudMap:
     def set_last_scan(self, scan: PointBuffer):
         self.last_scan = scan
 
-    def record_local_scan(self, xy_local: np.ndarray):
-        """Keep a frame's sensor-frame scan (host copy)."""
+    def record_local_scan(self, xy_local: np.ndarray,
+                          padded: Optional[PointBuffer] = None):
+        """Keep a frame's sensor-frame scan for the map rewrite: the host
+        copy, and `padded`, the device buffer the caller registered (a
+        reference), when it has one."""
         self.local_scans.append(np.asarray(xy_local, dtype=np.float32))
+        self.local_scans_dev.append(padded)
+
+    def _rebuild_submap(self, sm: Submap, new_poses: np.ndarray,
+                        atd_s: float, is_open: bool) -> Submap:
+        """Re-project one submap's scans through corrected poses over
+        its frozen frame range (the carried seeds and the members),
+        every add_scan branch as the forward pass ran it, in one
+        `_rebuild_submap_fused`."""
+        cfg = self.cfg
+        end = len(new_poses) if is_open else sm.cnt_e + 1
+        lo = max(0, sm.cnt_s - 2) if sm.cnt_s > 0 else 0
+        frames = range(lo, end)
+        n = len(frames)
+        n_pad = 8
+        while n_pad < n:
+            n_pad *= 2
+        S = cfg.max_scan_points
+        rows = []
+        for f in frames:
+            if self.local_scans_dev[f] is None:
+                self.local_scans_dev[f] = pad_points(self.local_scans[f], S,
+                                                     self.device)
+            rows.append(self.local_scans_dev[f])
+        rows += [PointBuffer.empty(S, self.device)] * (n_pad - n)
+        ps = np.zeros((n_pad, 3), np.float32)
+        ps[:n] = new_poses[lo:end]
+        active = np.arange(n_pad) < n
+        carried = np.arange(n_pad) < sm.cnt_s - lo
+        proc, count, proj, proj_mask, closed = _rebuild_submap_fused(
+            torch.stack([r.xy for r in rows]),
+            torch.stack([r.mask for r in rows]),
+            torch.from_numpy(ps).to(self.device), active, carried,
+            remove_moving=cfg.remove_moving, is_first=sm.cnt_s == 0,
+            cap_sub=cfg.max_submap_points, resol=cfg.diff_resol,
+            thre=cfg.thre_neighbor, leaf=cfg.submap_leaf_size,
+            do_close=not is_open,
+        )
+        new = Submap(cfg, atd_s, sm.cnt_s, self.device)
+        new.proc, new.proc_count = proc, count
+        new.n_scans = n
+        new.raw = [PointBuffer(proj[i], proj_mask[i])
+                   for i in range(max(0, n - 3), n)]
+        if not is_open:
+            new.cnt_e = sm.cnt_e
+            new.final_cloud = closed
+        return new
+
+    def remake_maps(self, new_poses_deg: np.ndarray,
+                    thresh_trans: Optional[float] = None,
+                    thresh_rot: Optional[float] = None):
+        """Rewrite the map through pose-graph-corrected poses. A closed
+        submap is rebuilt only if a pose it depends on (its members and
+        the two carried seed frames) moved more than (thresh_trans [m],
+        thresh_rot [deg]); the open submap, the registration target,
+        always rebuilds. Negative thresholds force a full rebuild (0
+        still keeps submaps whose poses are bit-identical). The cached
+        target and the moment lattice are invalidated; `remake_stats`
+        counts rebuilt and kept submaps."""
+        cfg = self.cfg
+        new_poses = np.asarray(new_poses_deg, dtype=np.float32)
+        if not len(new_poses) == len(self.local_scans) == len(self.poses):
+            raise ValueError(
+                f"{len(new_poses)} corrected poses for a map of "
+                f"{len(self.poses)} poses and {len(self.local_scans)} scans")
+        tt = cfg.remake_thresh_trans if thresh_trans is None else thresh_trans
+        tr = cfg.remake_thresh_rot if thresh_rot is None else thresh_rot
+
+        old_poses = np.asarray(self.poses, dtype=np.float32)
+        d_t = np.hypot(new_poses[:, 0] - old_poses[:, 0],
+                       new_poses[:, 1] - old_poses[:, 1])
+        d_r = np.abs(sub_deg(new_poses[:, 2], old_poses[:, 2]))
+        moved = (d_t > tt) | (d_r > tr)
+        # travelled distance along the corrected trajectory
+        seg = np.hypot(np.diff(new_poses[:, 0]), np.diff(new_poses[:, 1]))
+        cum = np.concatenate([[0.0], np.cumsum(seg)])
+
+        rebuilt = []
+        n_rebuilt = n_kept = 0
+        for k, sm in enumerate(self.submaps):
+            is_open = k == len(self.submaps) - 1
+            end = len(new_poses) if is_open else sm.cnt_e + 1
+            lo = max(0, sm.cnt_s - 2) if sm.cnt_s > 0 else 0
+            if is_open or moved[lo:end].any():
+                rebuilt.append(self._rebuild_submap(
+                    sm, new_poses, float(cum[sm.cnt_s]), is_open))
+                n_rebuilt += 1
+            else:
+                sm.atd_s = float(cum[sm.cnt_s])
+                rebuilt.append(sm)
+                n_kept += 1
+        self.submaps = rebuilt
+        self.poses = [p for p in new_poses]
+        self.atd = float(cum[-1])
+        self._cached_target = None
+        self._mom_valid = False
+        self.last_pose = new_poses[-1].copy()
+        self.remake_stats["calls"] += 1
+        self.remake_stats["rebuilt"] += n_rebuilt
+        self.remake_stats["kept"] += n_kept

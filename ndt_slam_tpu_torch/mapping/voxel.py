@@ -21,10 +21,11 @@ SENTINEL = 0xFFFFFFFF
 
 
 def voxel_keys(xy, mask, leaf: float):
-    """int64 voxel key per point; masked/out-of-range -> SENTINEL."""
+    """int64 voxel key per point ([..., N]); masked/out-of-range ->
+    SENTINEL."""
     c = torch.floor(xy / leaf).to(torch.int32) + 32768
     in_range = ((c >= 0) & (c < 65536)).all(dim=-1)
-    key = (c[:, 0].to(torch.int64) << 16) | c[:, 1].to(torch.int64)
+    key = (c[..., 0].to(torch.int64) << 16) | c[..., 1].to(torch.int64)
     return torch.where(mask & in_range, key, SENTINEL)
 
 

@@ -1,6 +1,5 @@
-"""Checkpoint and exact resume of a running front end (port of
-`ndt_slam_tpu.pipeline.checkpoint`, the front-end state; loop-closure
-state is not ported and a file that holds it is refused).
+"""Checkpoint and exact resume of a running front end and its
+loop-closure back end (port of `ndt_slam_tpu.pipeline.checkpoint`).
 
 The format is the JAX package's, key for key, so either package reads
 the other's file: one `.npz` holding every array plus a JSON manifest
@@ -9,7 +8,11 @@ numpy at rest; device buffers are rebuilt on load. A run interrupted
 at frame k, saved, loaded and continued gives the trajectory of the
 uninterrupted run bit for bit: the saved arrays are the very bits the
 run held, and the incremental moment lattice is saved, not rebuilt,
-because a rebuild sums in another order.
+because a rebuild sums in another order. The back end's graph (`be_*`:
+node poses, odometry and loop edges), its keyframes (`kf_*`: poses and
+scans) and its counters (the manifest's `backend` entry) are saved
+after a verification still in flight is resolved into edges, as the JAX
+package does.
 """
 
 from __future__ import annotations
@@ -47,6 +50,10 @@ def save_checkpoint(fe: FrontEnd, path: str) -> None:
     """Write the complete front-end state to `path` (.npz), through
     `path + ".tmp.npz"` and an atomic rename."""
     pm = fe.pcmap
+    be = fe.backend
+    if be is not None:
+        # a verification in flight would be lost across a resume
+        be._resolve_verify()
     meta = {
         "cnt": fe.cnt,
         "has_prev_odo": fe.prev_odo is not None,
@@ -108,11 +115,51 @@ def save_checkpoint(fe: FrontEnd, path: str) -> None:
             put(f"sm{si}_raw{ri}", rb)
         if sm.final_cloud is not None:
             put(f"sm{si}_final", sm.final_cloud)
+    if be is not None:
+        _backend_state(be, meta, arrays, dev)
     arrays.update(_fetch(dev))
 
     tmp = path + ".tmp.npz"
     np.savez_compressed(tmp, manifest=json.dumps(meta), **arrays)
     os.replace(tmp, path)
+
+
+def _backend_state(be, meta: dict, arrays: dict, dev: dict) -> None:
+    """The back end's half: counters in the manifest, the graph as host
+    arrays, the keyframe scans (device tensors) into `dev` for the one
+    device-to-host copy."""
+    kf = be.keyframes
+    meta["backend"] = {
+        "node_sids": be.node_sids,
+        "n_odom_edges": len(be.odom_edges),
+        "n_loop_edges": len(be.loop_edges),
+        "loops_accepted": be.loops_accepted,
+        "kf_sids": kf.sids,
+        "kf_pos_var": kf.pos_var,
+        "cum_pos_var": be._cum_pos_var,
+        "pending_edges": be._pending_edges,
+        "last_opt_node": be._last_opt_node,
+    }
+    arrays["be_node_poses"] = (
+        np.stack(be.node_poses_rad) if be.node_poses_rad
+        else np.zeros((0, 3), np.float32)
+    )
+    # odometry chain: edge k connects nodes (k, k+1); [K, 12] rows
+    arrays["be_odom_edges"] = (
+        np.stack([np.concatenate([z, om.reshape(-1)])
+                  for z, om in be.odom_edges])
+        if be.odom_edges else np.zeros((0, 12), np.float32)
+    )
+    arrays["be_loop_edges"] = (
+        np.stack([np.concatenate([np.array([i, j], np.float32), z,
+                                  om.reshape(-1)])
+                  for i, j, z, om in be.loop_edges])
+        if be.loop_edges else np.zeros((0, 14), np.float32)
+    )
+    if kf.sids:
+        arrays["kf_poses"] = np.stack(kf.poses_deg)
+        dev["kf_scan_xy"] = torch.stack(kf.scan_xy)
+        dev["kf_scan_mask"] = torch.stack(kf.scan_mask)
 
 
 def load_checkpoint(path: str, device, cfg: Optional[SlamConfig] = None,

@@ -14,11 +14,15 @@ map; `_registration_step_inc` cuts it out of the map's running moment
 lattice and adds the newest raw scan's moments. Both share the tail
 `_register_with_grid`.
 
-`FrontEnd` owns the first-scan bootstrap, the map bookkeeping and the
-metrics trail. The pose, covariance and odometry carries stay on the
-device between frames; the per-frame small outputs come back to the
-host in one device-to-host copy (a second one only for a frame whose
-window escaped the lattice and is redone through the full rebuild).
+`FrontEnd` owns the first-scan bootstrap, the map bookkeeping, the
+metrics trail and, with `loop_enable`, the loop-closure back end
+(`graph/backend.GraphBackend`): every frame becomes a graph node, every
+`loop_check_skip` frames candidates are verified, and a correction
+rewrites the pose history and the map (`_apply_correction`). The pose,
+covariance and odometry carries stay on the device between frames; the
+per-frame small outputs come back to the host in one device-to-host
+copy (a second one only for a frame whose window escaped the lattice
+and is redone through the full rebuild).
 
 Parity notes: cost is forced to failed_cost when the solve is unusable;
 accept iff cost <= score_thre (and the innovation gates hold); on
@@ -39,6 +43,7 @@ from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core import pose2
 from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer, pad_points
 from ndt_slam_tpu_torch.fuse.ekf import gate_and_fuse
+from ndt_slam_tpu_torch.graph.backend import GraphBackend
 from ndt_slam_tpu_torch.io import native
 from ndt_slam_tpu_torch.mapping.pointcloud_map import PointCloudMap
 from ndt_slam_tpu_torch.mapping.voxel import voxel_filter
@@ -245,8 +250,6 @@ class FrontEnd:
     ScanMatcher, on the device `device`."""
 
     def __init__(self, cfg: SlamConfig, device):
-        if cfg.loop_enable:
-            raise NotImplementedError("loop closure is not ported yet")
         if cfg.pipeline_depth > 0:
             raise NotImplementedError(
                 "the pipelined front end is not ported yet")
@@ -277,6 +280,15 @@ class FrontEnd:
         self.cov_history: list[np.ndarray] = []
         self.metrics: list[dict] = []
         self.timer = StageTimer(self.device)
+        # loop closure: wall time of the back end's checks (verify and
+        # optimise) and of the map rewrites after corrections
+        self.t_backend = 0.0
+        self.t_remake = 0.0
+        self.n_corrections = 0
+        self.backend = None
+        if cfg.loop_enable:
+            self.backend = GraphBackend(cfg, self.device)
+            self.backend.mark = self.timer.mark
 
     def process(self, scan_xy_local: np.ndarray, odo_pose_deg: np.ndarray,
                 sid: Optional[int] = None) -> dict:
@@ -302,7 +314,7 @@ class FrontEnd:
             cov = np.zeros((3, 3), dtype=np.float32)
             g = pose2.global_points(odo_dev, scan.xy)
             g = torch.where(scan.mask[:, None], g, PAD_COORD)
-            self._grow_map(PointBuffer(g, scan.mask), odo, rs)
+            self._grow_map(PointBuffer(g, scan.mask), odo, rs, scan)
             self.last_cov = torch.zeros((3, 3), dtype=torch.float32,
                                         device=self.device)
             self.prev_odo = odo
@@ -316,6 +328,8 @@ class FrontEnd:
                 "bootstrap": True,
             }
             self._record(odo, cov, rec)
+            if self.backend is not None:
+                self.backend.add_frame(sid, odo, cov, scan)
             return rec
 
         local = self.pcmap.registration_target()
@@ -376,7 +390,7 @@ class FrontEnd:
         self._last_pose_dev = out.fused_pose
         self._prev_odo_dev = odo_dev
         self._grow_map(PointBuffer(out.global_xy, scan.mask), fused,
-                       rs_local)
+                       rs_local, scan)
         self.prev_odo = odo
         self.cnt += 1
         self.timer.mark("map")
@@ -392,15 +406,52 @@ class FrontEnd:
             "trans_probability": float(small[16]),
         }
         self._record(fused, cov, rec)
+        self._backend_hook(sid, fused, cov, scan, rec)
         return rec
 
+    def _backend_hook(self, sid: int, fused, cov, scan: PointBuffer,
+                      rec: dict):
+        """The back end's step for one frame: add_frame, the check every
+        loop_check_skip frames, and the correction it returns."""
+        if self.backend is None:
+            return
+        self.backend.add_frame(sid, fused, cov, scan)
+        if (self.cnt - 1) % max(1, self.cfg.loop_check_skip) == 0:
+            t0 = time.perf_counter()
+            corrected = self.backend.try_close(sid, fused, scan)
+            self.t_backend += time.perf_counter() - t0
+            if corrected is not None:
+                self._correct(corrected)
+                rec["loop_closed"] = True
+                return
+        self.timer.mark("backend")
+
+    def _correct(self, corrected_deg: np.ndarray):
+        """Apply a correction, timed and counted."""
+        t0 = time.perf_counter()
+        self._apply_correction(corrected_deg)
+        self.t_remake += time.perf_counter() - t0
+        self.n_corrections += 1
+        self.timer.mark("backend")
+
+    def _apply_correction(self, corrected_deg: np.ndarray):
+        """Rewrite the trajectory and the map through the corrected
+        poses; the device-resident pose carry is stale after it."""
+        n = len(self.pose_history)
+        if corrected_deg.shape[0] != n:
+            raise ValueError(f"{corrected_deg.shape[0]} corrected poses for "
+                             f"a trajectory of {n}")
+        self.pose_history = [p.astype(np.float32) for p in corrected_deg]
+        self.pcmap.remake_maps(corrected_deg)
+        self._last_pose_dev = None
+
     def _grow_map(self, scan_map_frame: PointBuffer, fused_pose: np.ndarray,
-                  rs_local: np.ndarray):
+                  rs_local: np.ndarray, scan_local: PointBuffer):
         self.pcmap.add_pose(fused_pose)
         self.pcmap.add_points(scan_map_frame)
         self.pcmap.set_last_pose(fused_pose)
         self.pcmap.set_last_scan(scan_map_frame)
-        self.pcmap.record_local_scan(rs_local)
+        self.pcmap.record_local_scan(rs_local, padded=scan_local)
 
     def _record(self, fused, cov, rec):
         self.pose_history.append(np.asarray(fused, dtype=np.float32))
@@ -408,7 +459,15 @@ class FrontEnd:
         self.metrics.append(rec)
 
     def finalize(self):
-        """End of run: fold in the remaining stage intervals."""
+        """End of run: apply a correction the back end still holds (a
+        verification in flight, edges deferred by loop_opt_min_frames),
+        then fold in the remaining stage intervals."""
+        if self.backend is not None:
+            t0 = time.perf_counter()
+            corrected = self.backend.flush()
+            self.t_backend += time.perf_counter() - t0
+            if corrected is not None:
+                self._correct(corrected)
         self.timer.resolve(wait=True)
 
     def get_poses(self) -> np.ndarray:

@@ -1,7 +1,9 @@
 """Host loop over a log (port of `ndt_slam_tpu.pipeline.runner.run_slam`,
-synchronous, without the profile, pipelined, mesh or viz options): feed
-frames into the FrontEnd, save and resume checkpoints, then write the
-pose files and the global and per-submap PCD maps."""
+synchronous, without the profile, pipelined or mesh options): feed
+frames into the FrontEnd, save and resume checkpoints, render the map
+every few frames, then apply a correction the back end still holds and
+write the pose files, the global and per-submap PCD maps and the map
+picture."""
 
 from __future__ import annotations
 
@@ -19,6 +21,7 @@ from ndt_slam_tpu_torch.pipeline.checkpoint import (
     load_checkpoint, save_checkpoint,
 )
 from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
+from ndt_slam_tpu_torch.viz import render_frontend_png
 
 
 def run_slam(
@@ -32,6 +35,8 @@ def run_slam(
     checkpoint_every: int = 0,
     resume: bool = False,
     checkpoint_save: bool = True,
+    viz_every: int = 0,
+    viz_final: bool = False,
 ) -> FrontEnd:
     """Run the pipeline on `device` over frames (objects with .odo_pose
     and .scan_xy, e.g. io.carmen.LogFrame): stop after cfg.end_frame
@@ -41,7 +46,12 @@ def run_slam(
     `checkpoint_every` frames (if not 0) and at the end, unless
     `checkpoint_save` is false; with `resume` an existing checkpoint is
     loaded, the prefix of `frames` it covers is skipped and the metrics
-    file is appended to: the run resumes exactly."""
+    file is appended to: the run resumes exactly.
+
+    With `out_dir`, `viz_every` > 0 renders `viz_NNNNN.png` every that
+    many frames (< 0: every cfg.draw_skip frames, the reference's map
+    publish period) and `viz_final` (or `viz_every`) renders `map.png`
+    at the end (`viz.render_frontend_png`)."""
     resume_skip = 0
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
         fe = load_checkpoint(checkpoint_path, device, cfg)
@@ -53,6 +63,8 @@ def run_slam(
         fe = FrontEnd(cfg, device)
     # truncating on resume would lose the records before the checkpoint
     jl = JsonlWriter(metrics_path, append=resume_skip > 0)
+    if viz_every < 0:
+        viz_every = max(1, cfg.draw_skip)
     t0 = time.perf_counter()
     n = 0
     try:
@@ -75,6 +87,10 @@ def run_slam(
             if checkpoint_path and checkpoint_every and checkpoint_save \
                     and n % checkpoint_every == 0:
                 save_checkpoint(fe, checkpoint_path)
+            if viz_every and out_dir and n % viz_every == 0:
+                os.makedirs(out_dir, exist_ok=True)
+                render_frontend_png(
+                    os.path.join(out_dir, f"viz_{n:05d}.png"), fe)
             if verbose and cnt % 50 == 0:
                 print(f"[runner] frame {cnt} cost={rec.get('cost', 0):.4f} "
                       f"ok={rec.get('successful')}")
@@ -92,6 +108,8 @@ def run_slam(
         save_pcd(os.path.join(out_dir, "map.pcd"), fe.pcmap.global_map())
         for i, sm in enumerate(fe.pcmap.submap_clouds()):
             save_pcd(os.path.join(out_dir, f"submap_{i:03d}.pcd"), sm)
+        if viz_final or viz_every:
+            render_frontend_png(os.path.join(out_dir, "map.png"), fe)
     if verbose:
         elapsed = time.perf_counter() - t0
         print(f"[runner] {n} frames in {elapsed:.2f}s "

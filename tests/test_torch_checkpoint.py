@@ -5,7 +5,18 @@ for bit, lattice included; the file is the JAX package's format in both
 directions (the port writes and JAX reads and continues, JAX writes and
 the port reads, each within 1e-4 m of the writer's own continuation);
 the config comparison, the manifest-evolution rule, the refusal of
-loop-closure state; the runner's and the CLI's checkpoint options."""
+loop-closure state under a config without loops; the runner's and the
+CLI's checkpoint options.
+
+With loops on, the back end's half (`be_*`, `kf_*` and the manifest's
+`backend` entry): a run of 10 frames is given a pending loop edge
+(node 0 to node 9, measured from the ground truth) and saved; the
+continuation's first check then runs a correction, a pose-graph solve
+and a map rewrite through the corrected poses, right after the resume
+(when the map's device scan cache is empty). The port resumed from its
+own file equals its straight run bit for bit; JAX reads the port's
+file, and the port reads the file JAX writes from that state; each
+continuation lands within 0.05 m / 0.3 deg of the other package's."""
 
 import json
 import os
@@ -253,3 +264,90 @@ def test_cli_tsukuba_checkpoint_resume(runs, tmp_path):
         poses, np.stack(runs["fe"].pose_history)[:6], atol=1e-4)
     with open(out / "metrics.jsonl") as f:
         assert len(f.readlines()) == 6
+
+
+LOOP_CUT, LOOP_N = 10, 14
+# loops on, but no candidate ever (the gap): the back end's state without
+# a verifier run, so that only the solve and the rewrite are compiled
+LOOP_KW = dict(KW, loop_enable=True, loop_min_frame_gap=10 ** 6,
+               loop_keyframe_skip=2, loop_check_skip=2, pgo_iterations=5)
+
+
+@pytest.fixture(scope="module")
+def loop_runs(runs):
+    frames = runs["frames"][:LOOP_N]
+    cfg, jcfg = SlamConfig.small(**LOOP_KW), JSlamConfig.small(**LOOP_KW)
+    fe = FrontEnd(cfg, "cpu")
+    _step(fe, frames[:LOOP_CUT])
+    be = fe.backend
+    a, b = (np.asarray(frames[k].true_pose, np.float64) for k in (0, 9))
+    c, s_ = np.cos(np.radians(a[2])), np.sin(np.radians(a[2]))
+    d = b[:2] - a[:2]
+    z = np.array([c * d[0] + s_ * d[1], -s_ * d[0] + c * d[1],
+                  np.radians((b[2] - a[2] + 180.0) % 360.0 - 180.0)],
+                 np.float32)
+    be.loop_edges.append((0, 9, z, np.eye(3, dtype=np.float32) * 100.0))
+    be.loops_accepted += 1
+    be._pending_edges += 1
+    ckpt = str(runs["tmp"] / "loop_port.npz")
+    save_checkpoint(fe, ckpt)
+    _step(fe, frames[LOOP_CUT:])
+    fe.finalize()
+
+    jfe = j_load_checkpoint(ckpt, jcfg)
+    jckpt = str(runs["tmp"] / "loop_jax.npz")
+    j_save_checkpoint(jfe, jckpt)
+    _step(jfe, frames[LOOP_CUT:])
+    jfe.finalize()
+    return dict(frames=frames, cfg=cfg, fe=fe, ckpt=ckpt, jfe=jfe,
+                jckpt=jckpt)
+
+
+def test_backend_checkpoint_resumes_exactly_through_a_rewrite(loop_runs):
+    fe = load_checkpoint(loop_runs["ckpt"], "cpu")
+    assert fe.backend is not None and fe.backend._pending_edges == 1
+    assert all(d is None for d in fe.pcmap.local_scans_dev)
+    _step(fe, loop_runs["frames"][LOOP_CUT:])
+    fe.finalize()
+    full = loop_runs["fe"]
+    assert fe.n_corrections == full.n_corrections == 1
+    assert fe.pcmap.remake_stats == full.pcmap.remake_stats
+    assert fe.pcmap.remake_stats["rebuilt"] >= 1
+    np.testing.assert_array_equal(fe.get_poses(), full.get_poses())
+    np.testing.assert_array_equal(np.stack(fe.backend.node_poses_rad),
+                                  np.stack(full.backend.node_poses_rad))
+    np.testing.assert_array_equal(fe.pcmap.global_map(),
+                                  full.pcmap.global_map())
+
+
+def test_backend_checkpoint_is_the_jax_format(loop_runs):
+    with np.load(loop_runs["ckpt"]) as own, np.load(loop_runs["jckpt"]) as jx:
+        assert sorted(own.files) == sorted(jx.files)
+        for k in sorted(set(own.files) - {"manifest"}):
+            assert own[k].dtype == jx[k].dtype and own[k].shape == jx[k].shape
+        for k in ("be_node_poses", "be_odom_edges", "be_loop_edges",
+                  "kf_poses", "kf_scan_xy", "kf_scan_mask"):
+            np.testing.assert_array_equal(own[k], jx[k])
+        pm = json.loads(str(own["manifest"]))["backend"]
+        jm = json.loads(str(jx["manifest"]))["backend"]
+        assert pm == jm and pm["pending_edges"] == 1
+
+
+def test_jax_continues_port_backend_checkpoint(loop_runs):
+    jfe, fe = loop_runs["jfe"], loop_runs["fe"]
+    assert jfe.n_corrections == fe.n_corrections == 1
+    assert jfe.pcmap.remake_stats == fe.pcmap.remake_stats
+    d = _dist(np.stack(jfe.pose_history), fe.get_poses())
+    print(f"JAX continuing the port's back-end checkpoint: {d:.3g} m")
+    assert d <= 0.05
+
+
+def test_port_continues_jax_backend_checkpoint(loop_runs):
+    fe = load_checkpoint(loop_runs["jckpt"], "cpu", loop_runs["cfg"])
+    _step(fe, loop_runs["frames"][LOOP_CUT:])
+    fe.finalize()
+    jfe = loop_runs["jfe"]
+    assert fe.n_corrections == jfe.n_corrections == 1
+    d = _dist(fe.get_poses(), np.stack(jfe.pose_history))
+    print(f"the port continuing JAX's back-end checkpoint: {d:.3g} m")
+    assert d <= 0.05

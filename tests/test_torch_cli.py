@@ -3,17 +3,20 @@ shape of chip_smoke.py's main-path phases, on the CPU.
 
 - `grid_num_cells`, `grid_extent_x`, `grid_extent_y` equal the JAX
   config's for `SlamConfig()` and `SlamConfig.small()`;
-  `resolved_loop_verify_async` is off on the CPU (and on CUDA until
-  the back end is measured there) unless forced.
+  `resolved_loop_verify_async` is off on the CPU (and on CUDA, where
+  it was measured not to pay) unless forced.
 - `cli/run_slam_torch.py` on a simulated log writes the JAX CLI's
   `ate_odometry_m` (the odometry of the processed frames against the
   same ground-truth rows as `ate_rmse_m`, checked against
   `ndt_slam_tpu.metrics.ate_rmse` under `--start-frame`), and writes
   the JAX CLI's `grid_fallbacks` only when a window escaped the
   lattice, beside the port's `n_grid_fallbacks`.
+- with `--loop` the back end's keys are those the JAX CLI writes
+  (read from cli/run_slam.py's source), on a few simulated frames.
 - chip_smoke.py runs `[main]` over all 500 frames of the default path
-  and `[determinism]` on both grid paths (read from its source: the
-  script needs a card).
+  and `[determinism]` on both grid paths, and `[loop]` over all 500
+  frames with loops on, `[pgo]` and `[determinism]` / `[resume]` with
+  loops on (read from its source: the script needs a card).
 """
 
 import ast
@@ -125,3 +128,60 @@ def test_chip_smoke_runs_the_default_path_in_full_and_both_paths_twice():
     assert {ast.literal_eval(k) for k in paths.keys} == {"full rebuild",
                                                          "lattice"}
     assert {v.id for v in paths.values} == {"full", "inc"}
+
+
+def _jax_backend_keys():
+    """The keys cli/run_slam.py adds to summary.json for the back end."""
+    tree = ast.parse(open(os.path.join(ROOT, "cli", "run_slam.py")).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") \
+                == "update" and node.args \
+                and isinstance(node.args[0], ast.Dict):
+            keys = {ast.literal_eval(k) for k in node.args[0].keys}
+            if "loops_accepted" in keys:
+                return keys
+    raise AssertionError("no back-end summary in cli/run_slam.py")
+
+
+def test_loop_summary_has_the_jax_cli_keys(tmp_path, monkeypatch, capsys):
+    summary = _run_cli(tmp_path, monkeypatch, "loop",
+                       {"ndt_max_active_cells": 256}, "--simulate", "6",
+                       "--loop")
+    capsys.readouterr()
+    keys = _jax_backend_keys()
+    assert keys == {"loops_accepted", "corrections", "keyframes",
+                    "t_backend_s", "t_verify_s", "t_optimize_s",
+                    "t_remake_s", "remake_stats"}
+    assert keys <= set(summary)
+    # six frames: keyframes at 0 and 5, no candidate 80 frames old
+    assert summary["keyframes"] == 2 and summary["loops_accepted"] == 0
+    assert summary["corrections"] == 0
+    assert summary["remake_stats"] == {"calls": 0, "rebuilt": 0, "kept": 0}
+    plain = _run_cli(tmp_path, monkeypatch, "noloop",
+                     {"ndt_max_active_cells": 256}, "--simulate", "2")
+    capsys.readouterr()
+    assert not keys & set(plain)
+
+
+def _calls(fn_name):
+    tree = ast.parse(open(os.path.join(ROOT, "chip_smoke.py")).read())
+    fn = next(n for n in tree.body
+              if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    return [n for n in ast.walk(fn) if isinstance(n, ast.Call)
+            and isinstance(n.func, ast.Name)]
+
+
+def test_chip_smoke_runs_the_loop_phases():
+    """[loop] on the full rebuild with loop_enable over every frame, the
+    loops-on determinism and resume, and [pgo] in the child with the
+    verifier."""
+    calls = _calls("main")
+    loop = [c for c in calls if c.func.id == "_run_loop_path"]
+    assert [ast.literal_eval(c.args[0]) for c in loop] == ["loop"]
+    assert isinstance(loop[0].args[3], ast.Name) \
+        and loop[0].args[3].id == "loop"
+    src = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert "loop = full.replace(loop_enable=True)" in src
+    assert [c for c in calls if c.func.id == "_check_loop_determinism"]
+    assert [c for c in _calls("_loop_closure_child")
+            if c.func.id == "_check_pgo"]
