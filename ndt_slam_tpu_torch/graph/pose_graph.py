@@ -264,7 +264,7 @@ def _pcg(hvp, rhs, precond, max_iters: int, tol: float):
     The JAX package's record stands: a residual-stagnation early exit
     degraded the 4096-node sweep (CG residuals plateau non-monotonically
     on clustered spectra); runaway CG cost is the segment
-    preconditioner's job (`_pcg_gn`). Returns (x, iterations)."""
+    preconditioner's job (`optimize_pcg`). Returns (x, iterations)."""
     def dot(a, b):
         return torch.sum(a * b)
 
@@ -293,21 +293,25 @@ def _pcg(hvp, rhs, precond, max_iters: int, tol: float):
     return x, k
 
 
-def _pcg_gn(graph: PoseGraph, iterations: int, cg_iters: int, cg_tol: float,
-            damping: float, precond_seg_len: int = 0):
-    """Gauss-Newton with PCG steps, until `iterations` steps or a step
-    that lowers chi2 by less than 0.1 %.
+def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
+                 cg_tol: float = 1e-5, damping: float = 1e-6,
+                 precond_seg_len: int = 0):
+    """Matrix-free GN/PCG solve. Same contract as `optimize` (node 0
+    held at its input value) with O(N + E) memory: Gauss-Newton with
+    PCG steps, until `iterations` steps or a step that lowers chi2 by
+    less than 0.1 %.
 
-    precond_seg_len > 0 selects the chain-aware segment preconditioner:
-    nodes are grouped into runs of that length and the per-segment
-    dense sub-Hessians [M, 3L, 3L] are assembled and inverted once per
-    solve, from the initial linearization, so that every application
-    solves the odometry chain exactly within segments instead of only
-    its 3x3 diagonal. Cross-segment couplings keep only their diagonal
-    blocks, which preserves SPD. The JAX package measured both lessons
-    kept here: apply an explicit inverse (not triangular solves), and
-    let the preconditioner lag the linearization (CG only takes its
-    search directions from it)."""
+    precond_seg_len > 0 selects the chain-aware segment preconditioner
+    (the node capacity must be a multiple of it): nodes are grouped into
+    runs of that length and the per-segment dense sub-Hessians
+    [M, 3L, 3L] are assembled and inverted once per solve, from the
+    initial linearization, so that every application solves the odometry
+    chain exactly within segments instead of only its 3x3 diagonal.
+    Cross-segment couplings keep only their diagonal blocks, which
+    preserves SPD. The JAX package measured both lessons kept here:
+    apply an explicit inverse (not triangular solves), and let the
+    preconditioner lag the linearization (CG only takes its search
+    directions from it). 0 selects block Jacobi, rebuilt every step."""
     n = graph.capacity_nodes
     om = _masked_omega(graph)
     node_f = graph.node_mask.to(torch.float32)
@@ -351,29 +355,27 @@ def _pcg_gn(graph: PoseGraph, iterations: int, cg_iters: int, cg_tol: float,
     if precond_seg_len > 0:
         minv_seg = seg_inverse(graph.poses_rad)
 
-        def make_precond(AtO, A, BtO, B):
-            def precond(v):
-                vf = (v * ff).reshape(minv_seg.shape[0], -1, 1)
-                out = (minv_seg @ vf).reshape(n, 3) * ff
-                # a failed segment must not poison CG: identity there
-                return torch.where(torch.isfinite(out), out, v * ff)
-            return precond
-    else:
-        def make_precond(AtO, A, BtO, B):
-            D = nodes.sum(torch.cat([AtO @ A, BtO @ B]).reshape(-1, 9))
-            inv, info = torch.linalg.inv_ex(D.reshape(n, 3, 3) + diag)
-            minv = torch.where((info == 0)[:, None, None], inv,
-                               float("nan"))
+        def seg_precond(v):
+            vf = (v * ff).reshape(minv_seg.shape[0], -1, 1)
+            out = (minv_seg @ vf).reshape(n, 3) * ff
+            # a failed segment must not poison CG: identity there
+            return torch.where(torch.isfinite(out), out, v * ff)
 
-            def precond(v):
-                return (minv @ v[:, :, None])[..., 0] * ff
-            return precond
+    def jacobi_precond(A, B, AtO, BtO):
+        D = nodes.sum(torch.cat([AtO @ A, BtO @ B]).reshape(-1, 9))
+        inv, info = torch.linalg.inv_ex(D.reshape(n, 3, 3) + diag)
+        minv = torch.where((info == 0)[:, None, None], inv, float("nan"))
+
+        def precond(v):
+            return (minv @ v[:, :, None])[..., 0] * ff
+        return precond
 
     def gn_step(poses):
         r, A, B, AtO, BtO = _edge_terms(graph, om, poses)
         b = nodes.sum(torch.cat([(AtO @ r[:, :, None])[..., 0],
                                  (BtO @ r[:, :, None])[..., 0]]))
-        precond = make_precond(AtO, A, BtO, B)
+        precond = (seg_precond if precond_seg_len > 0
+                   else jacobi_precond(A, B, AtO, BtO))
 
         def hvp(v):
             vf = v * ff
@@ -400,17 +402,6 @@ def _pcg_gn(graph: PoseGraph, iterations: int, cg_iters: int, cg_tol: float,
         poses = gn_step(poses)
         prev, cur = cur, chi2_of(poses)
     return poses, cur
-
-
-def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
-                 cg_tol: float = 1e-5, damping: float = 1e-6,
-                 precond_seg_len: int = 0):
-    """Matrix-free GN/PCG solve. Same contract as `optimize` (node 0
-    held at its input value) with O(N + E) memory. precond_seg_len > 0
-    selects the chain-aware segment preconditioner (see `_pcg_gn`); the
-    node capacity must be a multiple of it."""
-    return _pcg_gn(graph, iterations, cg_iters, cg_tol, damping,
-                   precond_seg_len=precond_seg_len)
 
 
 # ---------------------------------------------------------------------------

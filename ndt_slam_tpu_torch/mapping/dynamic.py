@@ -4,8 +4,9 @@
 - `occupancy_diff_mask`: points of `test` whose `resol`-voxel no `base`
   point occupies, by a binary search over sorted base voxel keys.
 - `keep_far_from_mask`: points at least `thre` away from every
-  candidate, through the nearest-neighbour pass (`kernels.nn_sq_dists`:
-  the CUDA NN kernel on the card, its difference-form twin on the CPU).
+  candidate, through the nearest-neighbour pass
+  (`kernels.nn_sq_dists_batched`: the CUDA NN kernel on the card, its
+  difference-form twin on the CPU).
 - `process_interior_scan`: candidates = diff(prev ∪ next -> cur); keep
   the cur points at least `thre_neighbor` away from every candidate.
 
@@ -13,7 +14,7 @@ Each takes leading batch dimensions ([B,N,2] points, [B,N] masks: B
 independent problems, the JAX package's `vmap` of the pass over a
 rebuilt submap's windows); a batch goes through the batch axis of the
 nearest-neighbour kernel in one call, and "no candidate" is decided
-row by row.
+row by row. A single scan is a batch of one.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ import torch
 
 from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer
 from ndt_slam_tpu_torch.mapping.voxel import SENTINEL, voxel_keys
-from ndt_slam_tpu_torch.ndt.kernels import nn_sq_dists, nn_sq_dists_batched
+from ndt_slam_tpu_torch.ndt.kernels import nn_sq_dists_batched
 
 
 def occupancy_diff_mask(base_xy, base_mask, test_xy, test_mask,
@@ -40,8 +41,10 @@ def occupancy_diff_mask(base_xy, base_mask, test_xy, test_mask,
 def keep_far_from_mask(pts_xy, pts_mask, cand_xy, cand_mask, thre: float):
     """Mask over `pts`: True where the distance to every valid candidate
     is >= thre (all kept when there is no candidate)."""
-    nn = nn_sq_dists_batched if pts_xy.dim() == 3 else nn_sq_dists
-    d2 = nn(pts_xy, pts_mask, cand_xy, cand_mask)
+    if pts_xy.dim() == 2:
+        return keep_far_from_mask(pts_xy[None], pts_mask[None],
+                                  cand_xy[None], cand_mask[None], thre)[0]
+    d2 = nn_sq_dists_batched(pts_xy, pts_mask, cand_xy, cand_mask)
     no_cand = ~cand_mask.any(dim=-1, keepdim=True)
     return pts_mask & (no_cand | (d2 >= thre * thre))
 

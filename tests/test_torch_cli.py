@@ -173,6 +173,7 @@ def _calls(fn_name):
 
 def test_chip_smoke_runs_the_loop_phases():
     """[loop] on the full rebuild with loop_enable over every frame, the
+    rewrite's batched nearest-neighbour calls against the twin, the
     loops-on determinism and resume, and [pgo] in the child with the
     verifier."""
     calls = _calls("main")
@@ -182,6 +183,7 @@ def test_chip_smoke_runs_the_loop_phases():
         and loop[0].args[3].id == "loop"
     src = open(os.path.join(ROOT, "chip_smoke.py")).read()
     assert "loop = full.replace(loop_enable=True)" in src
+    assert [c for c in calls if c.func.id == "_check_rewrite_nn"]
     assert [c for c in calls if c.func.id == "_check_loop_determinism"]
     assert [c for c in _calls("_loop_closure_child")
             if c.func.id == "_check_pgo"]
