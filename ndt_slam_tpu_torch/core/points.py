@@ -18,12 +18,14 @@ PAD_COORD = 1.0e8
 
 
 class PointBuffer(NamedTuple):
+    """One buffer, or [B] leading both fields for B buffers of one
+    capacity."""
     xy: torch.Tensor    # [N, 2] float32
     mask: torch.Tensor  # [N] bool
 
     @property
     def capacity(self) -> int:
-        return self.xy.shape[0]
+        return self.xy.shape[-2]
 
     @staticmethod
     def empty(capacity: int, device) -> "PointBuffer":
@@ -47,11 +49,17 @@ def pad_points(xy: np.ndarray, capacity: int, device) -> PointBuffer:
 
 
 def compact(buf: PointBuffer) -> PointBuffer:
-    """Move valid points to the front (stable), padding the tail."""
-    order = torch.sort((~buf.mask).to(torch.int8), stable=True).indices
-    xy = buf.xy.index_select(0, order)
-    mask = buf.mask.index_select(0, order)
-    xy = torch.where(mask[:, None], xy, PAD_COORD)
+    """Move valid points to the front (stable), padding the tail; row by
+    row for [B,N] buffers."""
+    order = torch.sort((~buf.mask).to(torch.int8), dim=-1,
+                       stable=True).indices
+    if buf.mask.dim() == 1:
+        xy = buf.xy.index_select(0, order)
+        mask = buf.mask.index_select(0, order)
+    else:
+        xy = buf.xy.gather(-2, order[..., None].expand(*order.shape, 2))
+        mask = buf.mask.gather(-1, order)
+    xy = torch.where(mask[..., None], xy, PAD_COORD)
     return PointBuffer(xy, mask)
 
 

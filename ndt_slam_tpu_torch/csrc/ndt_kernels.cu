@@ -626,14 +626,19 @@ __device__ __forceinline__ float nan_min(float a, float b) {
 // live warp the loads are unconditional (a lane without a live source
 // reads column 0 and drops it: a branch around each load would put it
 // and its use into a basic block of their own, one L2 latency after the
-// other). d2_out
-// [n] (may be null): minimum over the partials, clamped at 0, 1e12 for
-// a masked source. kFitness (launched as one cluster of kNnFinCluster
-// blocks): fit_out[0] = the mean of d2 over the live sources, or 1e12
-// with no live source or no live target (n_live entries of `live`, any
-// > 0). The sum runs per thread in step order, then through block_sum,
-// then over the cluster's blocks in rank order, read by block 0 from
-// their shared memory: a fixed order, no atomics, no third launch.
+// other). The batch row is blockIdx.y. d2_out
+// [batch, n] (may be null): minimum over the partials, clamped at 0,
+// 1e12 for a masked source. kFitness (launched as one cluster of
+// kNnFinCluster blocks a row): fit_out[row] = the mean of d2 over the
+// row's live sources, or 1e12 with no live source or no live target
+// (n_live entries of the row's `live`, any > 0). The sum runs per
+// thread in step order, then through block_sum, then over the cluster's
+// blocks in rank order, read by block 0 from their shared memory: a
+// fixed order, no atomics, no third launch. That order depends on n
+// and the cluster's shape only, not on the batch or on how many blocks
+// the first launch used (the minimum over their partials is exact in
+// any order), so row b of a batch gives the mean of a call on row b
+// alone bit for bit.
 template <bool kFitness>
 __global__ void __launch_bounds__(kNnFinThreads)
 nn_finish_kernel(const float* __restrict__ part,
@@ -642,11 +647,15 @@ nn_finish_kernel(const float* __restrict__ part,
                  float* __restrict__ d2_out, float* __restrict__ fit_out,
                  int n, int blocks, int n_live) {
   constexpr int kPerRound = kNnFinThreads / kNnFinShare;   // 128 sources
-  if constexpr (!kFitness) {   // the batch row: blockIdx.y
+  {
     const size_t row = blockIdx.y;
     part += row * blocks * n;
     src_mask += row * n;
-    d2_out += row * n;
+    if (d2_out != nullptr) d2_out += row * n;
+    if constexpr (kFitness) {
+      live += row * n_live;
+      fit_out += row;
+    }
   }
   __shared__ float s_min[kNnFinRounds][kNnFinShare][kPerRound];
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -884,7 +893,7 @@ int ndt_empty(void* stream) {
 // tiles = ceil(n / ndt_nn_tile()); part_idx [batch, blocks, n] too for
 // the argmin form. Out: d2_out [batch, n]; with idx_out [batch, n] not
 // null also the index of the nearest live target (the argmin form);
-// with fit_out [1] not null (batch 1, no index) the fitness mean
+// with fit_out [batch] not null (no index) each row's fitness mean
 // instead of d2. blocks: the blocks that share the target chunks of one
 // source tile.
 int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
@@ -892,7 +901,7 @@ int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
            int* live, float* d2_out, int* idx_out, float* fit_out, int n,
            int m, int batch, int blocks, void* stream) {
   if (n < 1 || m < 1 || blocks < 1 || batch < 1 || batch > 65535 ||
-      (fit_out != nullptr && (batch != 1 || idx_out != nullptr)) ||
+      (fit_out != nullptr && idx_out != nullptr) ||
       (idx_out != nullptr && (part_idx == nullptr || d2_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
@@ -918,7 +927,7 @@ int ndt_nn(const float* src, const unsigned char* src_mask, const float* tgt,
     cluster.val.clusterDim.y = 1;
     cluster.val.clusterDim.z = 1;
     cudaLaunchConfig_t config = {};
-    config.gridDim = dim3(kNnFinCluster);
+    config.gridDim = dim3(kNnFinCluster, batch);
     config.blockDim = dim3(kNnFinThreads);
     config.stream = st;
     config.attrs = &cluster;

@@ -9,7 +9,9 @@ update:   K = cov_hat (Q + cov_hat)⁻¹,  cov = (I−K) cov_hat,
 
 Covariances are in (m, m, rad); poses cross the API in degrees. The
 3x3 products are float32 torch matmuls, which run in full float32
-unless TF32 is switched on globally (it is off by default).
+unless TF32 is switched on globally (it is off by default). Every
+function also takes a leading batch dimension (the lockstep batch
+runner's B sequences), each row computed on its own.
 """
 
 from __future__ import annotations
@@ -21,28 +23,37 @@ from ndt_slam_tpu_torch.core.angles import (
 )
 
 
+def _mv(A, x):
+    """A @ x of [..., 3, 3] matrices and [..., 3] vectors."""
+    if x.dim() == 1:
+        return A @ x
+    return (A @ x[..., None])[..., 0]
+
+
 def odometry_covariance(odo_motion_deg, last_pose_deg, last_cov,
                         del_time: float, coe_vel: float, coe_omega: float):
     """Propagated covariance cov_hat."""
-    v = torch.sqrt(odo_motion_deg[0] ** 2 + odo_motion_deg[1] ** 2) / del_time
-    omega = deg2rad(odo_motion_deg[2]) / del_time
-    th = deg2rad(last_pose_deg[2])
+    v = torch.sqrt(odo_motion_deg[..., 0] ** 2
+                   + odo_motion_deg[..., 1] ** 2) / del_time
+    omega = deg2rad(odo_motion_deg[..., 2]) / del_time
+    th = deg2rad(last_pose_deg[..., 2])
     c, s = torch.cos(th), torch.sin(th)
 
-    M = torch.diag(torch.stack([coe_vel * v * v, coe_omega * omega * omega]))
+    M = torch.diag_embed(torch.stack([coe_vel * v * v,
+                                      coe_omega * omega * omega], dim=-1))
     zero = torch.zeros_like(v)
     one = torch.ones_like(v)
     A = torch.stack([
-        torch.stack([del_time * c, zero]),
-        torch.stack([del_time * s, zero]),
-        torch.stack([zero, del_time * one]),
-    ])
+        torch.stack([del_time * c, zero], dim=-1),
+        torch.stack([del_time * s, zero], dim=-1),
+        torch.stack([zero, del_time * one], dim=-1),
+    ], dim=-2)
     F = torch.stack([
-        torch.stack([one, zero, -v * del_time * s]),
-        torch.stack([zero, one, v * del_time * c]),
-        torch.stack([zero, zero, one]),
-    ])
-    return F @ last_cov @ F.T + A @ M @ A.T
+        torch.stack([one, zero, -v * del_time * s], dim=-1),
+        torch.stack([zero, one, v * del_time * c], dim=-1),
+        torch.stack([zero, zero, one], dim=-1),
+    ], dim=-2)
+    return F @ last_cov @ F.mT + A @ M @ A.mT
 
 
 def fuse_pose(pred_pose_deg, est_pose_deg, odo_motion_deg, last_pose_deg,
@@ -54,27 +65,30 @@ def fuse_pose(pred_pose_deg, est_pose_deg, odo_motion_deg, last_pose_deg,
         odo_motion_deg, last_pose_deg, last_cov, del_time, coe_vel, coe_omega
     )
     mu_hat = torch.stack(
-        [pred_pose_deg[0], pred_pose_deg[1], deg2rad(pred_pose_deg[2])]
+        [pred_pose_deg[..., 0], pred_pose_deg[..., 1],
+         deg2rad(pred_pose_deg[..., 2])], dim=-1
     )
     eye = torch.eye(3, dtype=cov_hat.dtype, device=cov_hat.device)
     # symmetrize + jitter S: both terms can sit near the f32 noise floor
     S = q_mat + cov_hat
-    S = 0.5 * (S + S.T)
-    S = S + (1e-6 * torch.trace(S) + 1e-9) * eye
+    S = 0.5 * (S + S.mT)
+    trace = torch.diagonal(S, dim1=-2, dim2=-1).sum(-1)
+    S = S + (1e-6 * trace + 1e-9)[..., None, None] * eye
     # solve_ex: no error check, so no host sync (S is SPD by the jitter)
-    K = torch.linalg.solve_ex(S.T, cov_hat.T).result.T
+    K = torch.linalg.solve_ex(S.mT, cov_hat.mT).result.mT
     cov = (eye - K) @ cov_hat
-    cov = 0.5 * (cov + cov.T)
+    cov = 0.5 * (cov + cov.mT)
 
     zh = torch.stack([
-        est_pose_deg[0] - pred_pose_deg[0],
-        est_pose_deg[1] - pred_pose_deg[1],
-        deg2rad(sub_deg(est_pose_deg[2], pred_pose_deg[2])),
-    ])
+        est_pose_deg[..., 0] - pred_pose_deg[..., 0],
+        est_pose_deg[..., 1] - pred_pose_deg[..., 1],
+        deg2rad(sub_deg(est_pose_deg[..., 2], pred_pose_deg[..., 2])),
+    ], dim=-1)
     if innov_proj is not None:
-        zh = innov_proj @ zh
-    mu = K @ zh + mu_hat
-    fused = torch.stack([mu[0], mu[1], rad2deg(wrap_rad(mu[2]))])
+        zh = _mv(innov_proj, zh)
+    mu = _mv(K, zh) + mu_hat
+    fused = torch.stack([mu[..., 0], mu[..., 1],
+                         rad2deg(wrap_rad(mu[..., 2]))], dim=-1)
     return fused, cov
 
 
@@ -82,30 +96,32 @@ def gate_and_fuse(cfg, pred_pose_deg, est_pose_deg, hessian, cost,
                   odo_motion_deg, last_pose_deg, last_cov):
     """NDT covariance from the objective Hessian, fitness + innovation
     gates, Kalman fuse on accept / odometry propagation on reject.
-    Returns (fused_pose_deg [3], cov [3,3], accept bool)."""
+    Returns (fused_pose_deg [3], cov [3,3], accept bool); [B,3] poses,
+    [B,3,3] matrices and [B] costs give B rows, each fused alone."""
     H = hessian
     eye = torch.eye(3, dtype=H.dtype, device=H.device)
-    H = torch.where(torch.isfinite(H).all(), H, eye)
+    H = torch.where(torch.isfinite(H).flatten(-2).all(-1)[..., None, None],
+                    H, eye)
     # ascending eigenvalues, like jnp.linalg.eigh (evals[-1] is the max)
     evals, evecs = torch.linalg.eigh(H)
     inv_e = cfg.coe_ndt_cov / torch.clamp(evals, min=1e-3)
     # Q's variances capped into [1e-6, 1e-2] (1 mm .. 10 cm std)
     inv_e = torch.clamp(inv_e, 1e-6, 1e-2)
-    q_mat = (evecs * inv_e[None, :]) @ evecs.T
+    q_mat = (evecs * inv_e[..., None, :]) @ evecs.mT
 
     # degenerate-direction projection: innovation components along
     # eigendirections with relatively ~zero curvature follow odometry
     ratio = cfg.fuse_degenerate_ratio
     if ratio > 0.0:
-        wmax = torch.clamp(evals[-1], min=1e-9)
+        wmax = torch.clamp(evals[..., -1:], min=1e-9)
         keep = (evals > ratio * wmax).to(H.dtype)
-        innov_proj = (evecs * keep[None, :]) @ evecs.T
+        innov_proj = (evecs * keep[..., None, :]) @ evecs.mT
     else:
         innov_proj = eye
 
-    innov_t = torch.hypot(est_pose_deg[0] - pred_pose_deg[0],
-                          est_pose_deg[1] - pred_pose_deg[1])
-    innov_r = torch.abs(sub_deg(est_pose_deg[2], pred_pose_deg[2]))
+    innov_t = torch.hypot(est_pose_deg[..., 0] - pred_pose_deg[..., 0],
+                          est_pose_deg[..., 1] - pred_pose_deg[..., 1])
+    innov_r = torch.abs(sub_deg(est_pose_deg[..., 2], pred_pose_deg[..., 2]))
     plausible = ((innov_t <= cfg.max_innovation_trans)
                  & (innov_r <= cfg.max_innovation_rot))
     successful = (cost <= cfg.score_thre) & plausible
@@ -120,13 +136,13 @@ def gate_and_fuse(cfg, pred_pose_deg, est_pose_deg, hessian, cost,
         cfg.del_time, cfg.coe_vel, cfg.coe_omega,
     )
     # the fused pose must also stay within the innovation gate
-    fused_t = torch.hypot(fused_k[0] - pred_pose_deg[0],
-                          fused_k[1] - pred_pose_deg[1])
-    fused_r = torch.abs(sub_deg(fused_k[2], pred_pose_deg[2]))
+    fused_t = torch.hypot(fused_k[..., 0] - pred_pose_deg[..., 0],
+                          fused_k[..., 1] - pred_pose_deg[..., 1])
+    fused_r = torch.abs(sub_deg(fused_k[..., 2], pred_pose_deg[..., 2]))
     fused_ok = ((fused_t <= cfg.max_innovation_trans)
                 & (fused_r <= cfg.max_innovation_rot)
-                & torch.isfinite(fused_k).all())
+                & torch.isfinite(fused_k).all(dim=-1))
     accept = successful & fused_ok
-    fused = torch.where(accept, fused_k, pred_pose_deg)
-    cov = torch.where(accept, cov_k, cov_odo)
+    fused = torch.where(accept[..., None], fused_k, pred_pose_deg)
+    cov = torch.where(accept[..., None, None], cov_k, cov_odo)
     return fused, cov, accept

@@ -26,6 +26,13 @@ replays the submap's whole add_scan sequence on the device at once
 submap in one batched pass, one call of the nearest-neighbour kernel's
 batch axis, and the buffer filled in the forward order.
 
+The lockstep batch runner keeps B maps' open-submap buffers stacked on
+the device and updates them in one `_add_scan_and_target` call over
+[B, ...] buffers (every helper here takes a leading batch dimension);
+`fused_add_flags` gives a frame's flags from host counters, while the
+runner holds the buffers; `_add_scan_fused` is `fused_add_operands`,
+the update and `commit_fused_add`.
+
 Buffer order is part of the contract: `_append` writes at the running
 count, `voxel_filter` enumerates voxels from slot 0 and `_concat`
 splices b's valid points right after a's valid prefix. A masked write
@@ -53,24 +60,33 @@ from ndt_slam_tpu_torch.ndt.grid import moments_abs
 
 def _scatter_rows(base: PointBuffer, idx, src: PointBuffer, ok):
     """base with src's rows written at idx (rows with idx ==
-    base.capacity land in a dump row that is dropped)."""
+    base.capacity land in a dump row that is dropped); [B,...] buffers
+    and indices scatter row by row."""
     cap = base.capacity
-    xy = torch.cat([base.xy, base.xy.new_full((1, 2), PAD_COORD)])
-    mask = torch.cat([base.mask, base.mask.new_zeros(1)])
-    xy[idx] = src.xy
-    mask[idx] = ok
-    return xy[:cap], mask[:cap]
+    lead = base.mask.shape[:-1]
+    xy = torch.cat([base.xy, base.xy.new_full((*lead, 1, 2), PAD_COORD)],
+                   dim=-2)
+    mask = torch.cat([base.mask, base.mask.new_zeros((*lead, 1))], dim=-1)
+    if lead:
+        rows = torch.arange(lead[0], device=idx.device)[:, None]
+        xy[rows, idx] = src.xy
+        mask[rows, idx] = ok
+    else:
+        xy[idx] = src.xy
+        mask[idx] = ok
+    return xy[..., :cap, :], mask[..., :cap]
 
 
 def _append_rows(dst: PointBuffer, dst_count, src: PointBuffer):
     """Append src's valid points into dst at dst_count (drop overflow).
-    Returns (buffer, new count, compacted src, appended-row mask)."""
+    Returns (buffer, new count, compacted src, appended-row mask). [B,...]
+    buffers with [B] counts append row by row."""
     s = compact(src)
-    idx = dst_count + torch.arange(s.capacity, device=s.xy.device)
+    idx = dst_count[..., None] + torch.arange(s.capacity, device=s.xy.device)
     ok = s.mask & (idx < dst.capacity)
     idx = torch.where(ok, idx, dst.capacity)
     xy, mask = _scatter_rows(dst, idx, s, ok)
-    count = dst_count + ok.sum(dtype=torch.int32)
+    count = dst_count + ok.sum(dim=-1, dtype=torch.int32)
     return PointBuffer(xy, mask), count, s, ok
 
 
@@ -83,22 +99,25 @@ def _append(dst: PointBuffer, dst_count, src: PointBuffer):
 def _concat(a: PointBuffer, b: PointBuffer, capacity: int) -> PointBuffer:
     """Prefix-compact `a` followed by b's valid points (stable) in a
     `capacity` buffer: an O(capacity) scatter, no sort of the union.
-    Contract: a's valid points occupy a prefix of its buffer."""
-    a_n = a.mask.sum()
+    Contract: a's valid points occupy a prefix of its buffer. [B,...]
+    buffers concatenate row by row."""
+    a_n = a.mask.sum(dim=-1)
     bc = compact(b)
+    lead = a.mask.shape[:-1]
     if a.capacity >= capacity:
-        base = PointBuffer(a.xy[:capacity], a.mask[:capacity])
+        base = PointBuffer(a.xy[..., :capacity, :], a.mask[..., :capacity])
     else:
         pad = capacity - a.capacity
         base = PointBuffer(
-            torch.cat([a.xy, a.xy.new_full((pad, 2), PAD_COORD)]),
-            torch.cat([a.mask, a.mask.new_zeros(pad)]),
+            torch.cat([a.xy, a.xy.new_full((*lead, pad, 2), PAD_COORD)],
+                      dim=-2),
+            torch.cat([a.mask, a.mask.new_zeros((*lead, pad))], dim=-1),
         )
-    idx = a_n + torch.arange(bc.capacity, device=bc.xy.device)
+    idx = a_n[..., None] + torch.arange(bc.capacity, device=bc.xy.device)
     ok = bc.mask & (idx < capacity)
     idx = torch.where(ok, idx, capacity)
     xy, mask = _scatter_rows(base, idx, bc, ok)
-    xy = torch.where(mask[:, None], xy, PAD_COORD)
+    xy = torch.where(mask[..., None], xy, PAD_COORD)
     return PointBuffer(xy, mask)
 
 
@@ -137,14 +156,18 @@ def _add_scan_target_mom(
     if has_prev:
         target = _concat(prev, cur_t, cap_local)
     else:
-        target = _concat(cur_t, PointBuffer.empty(1, proc.xy.device),
+        lead = proc.mask.shape[:-1]
+        none = PointBuffer.empty(1, proc.xy.device)
+        target = _concat(cur_t, PointBuffer(none.xy.expand(*lead, 1, 2),
+                                            none.mask.expand(*lead, 1)),
                          cap_local)
     return proc, proc_count, target, mom
 
 
 def _add_scan_and_target(proc, proc_count, raw_a, raw_b, scan, prev, **flags):
     """`_add_scan_target_mom` without a lattice: (proc, proc_count,
-    target)."""
+    target). With [B,...] buffers and [B] counts it updates B submaps
+    under one flag set (the lockstep batch runner's map step)."""
     return _add_scan_target_mom(proc, proc_count, raw_a, raw_b, scan, prev,
                                 None, None, **flags)[:3]
 
@@ -341,10 +364,14 @@ class PointCloudMap:
                                        pose_deg[1] - pp[1]))
         self.poses.append(pose_deg)
 
-    def add_points(self, scan_map_frame: PointBuffer):
-        """Append one map-frame scan. The common (no submap-close) path
-        also assembles the next frame's registration target, which
-        `registration_target()` returns."""
+    def add_points(self, scan_map_frame: PointBuffer,
+                   make_target: bool = True):
+        """Append one map-frame scan. With `make_target` (the front end's
+        path) the common (no submap-close) path also assembles the next
+        frame's registration target in the same update, which
+        `registration_target()` returns; without it the scan goes
+        through `Submap.add_scan` and the target is assembled when it is
+        asked for."""
         cfg = self.cfg
         cur = self.submaps[-1]
         self._cached_target = None
@@ -358,8 +385,58 @@ class PointCloudMap:
             new.add_scan(scan_map_frame)
             self.submaps.append(new)
             self._mom_valid = False
+        elif make_target:
+            self._cached_target = self._add_scan_fused(scan_map_frame)
         else:
-            self._cached_target = self._add_scan_fused(cur, scan_map_frame)
+            cur.add_scan(scan_map_frame)
+            self._mom_valid = False
+
+    def fused_add_flags(self) -> Optional[dict]:
+        """The flags of `_add_scan_and_target` for the current frame, from
+        host counters only (so they may be asked while the lockstep batch
+        runner holds the map's buffers), or None when this frame closes
+        the submap."""
+        cfg = self.cfg
+        cur = self.submaps[-1]
+        if self.atd - cur.atd_s >= cfg.submap_sep_thre:
+            return None
+        append_scan, do_interior, include_newest = cur.step_flags()
+        return dict(
+            append_scan=append_scan, do_interior=do_interior,
+            include_newest=include_newest,
+            has_prev=len(self.submaps) >= 2,
+            filtered=cfg.ndt_target_filtered,
+            cap_sub=cfg.max_submap_points,
+            cap_local=cfg.max_local_map_points,
+            resol=cfg.diff_resol, thre=cfg.thre_neighbor,
+            leaf=cfg.submap_leaf_size,
+        )
+
+    def fused_add_operands(self, scan: PointBuffer):
+        """(flags, operands) of the `_add_scan_and_target` call that
+        `Submap.add_scan` plus `registration_target()` amount to for the
+        current frame, or None when this frame closes the submap (the
+        caller then takes `add_points`)."""
+        flags = self.fused_add_flags()
+        if flags is None:
+            return None
+        cur = self.submaps[-1]
+        prev = (self.submaps[-2].final_cloud if flags["has_prev"]
+                else PointBuffer.empty(1, self.device))
+        raw_a = cur.raw[-2] if len(cur.raw) >= 2 else scan
+        raw_b = cur.raw[-1] if len(cur.raw) >= 1 else scan
+        return flags, (cur.proc, cur.proc_count, raw_a, raw_b, scan, prev)
+
+    def commit_fused_add(self, scan: PointBuffer, proc: PointBuffer, count,
+                         target: PointBuffer):
+        """Take the results of the `_add_scan_and_target` call for `scan`
+        (its operands from `fused_add_operands`): the bookkeeping half of
+        `_add_scan_fused`."""
+        cur = self.submaps[-1]
+        cur._push_raw(scan)
+        cur.n_scans += 1
+        cur.proc, cur.proc_count = proc, count
+        self._cached_target = target
 
     def mom_state(self):
         """(mom [B*B, 6], anchor [2] int32) of the incremental lattice,
@@ -396,34 +473,19 @@ class PointCloudMap:
         cur = self.submaps[-1]
         return cur.raw[-1] if cur.raw else None
 
-    def _add_scan_fused(self, cur: Submap, scan: PointBuffer) -> PointBuffer:
+    def _add_scan_fused(self, scan: PointBuffer) -> PointBuffer:
         """Map update for this frame that also returns the next target
         (and adds to the lattice when the incremental grid is on)."""
         cfg = self.cfg
-        append_scan, do_interior, include_newest = cur.step_flags()
-        has_prev = len(self.submaps) >= 2
-        prev = (self.submaps[-2].final_cloud if has_prev
-                else PointBuffer.empty(1, self.device))
-        raw_a = cur.raw[-2] if len(cur.raw) >= 2 else scan
-        raw_b = cur.raw[-1] if len(cur.raw) >= 1 else scan
+        flags, ops = self.fused_add_operands(scan)
         mom, anchor = (self.mom_state() if self.incremental_grid
                        else (None, None))
-        proc, count, target, mom = _add_scan_target_mom(
-            cur.proc, cur.proc_count, raw_a, raw_b, scan, prev, mom, anchor,
-            append_scan=append_scan, do_interior=do_interior,
-            include_newest=include_newest, has_prev=has_prev,
-            filtered=cfg.ndt_target_filtered,
-            cap_sub=cfg.max_submap_points,
-            cap_local=cfg.max_local_map_points,
-            resol=cfg.diff_resol, thre=cfg.thre_neighbor,
-            leaf=cfg.submap_leaf_size,
+        proc, count, target, self._mom = _add_scan_target_mom(
+            *ops, mom, anchor, **flags,
             mom_cells=cfg.resolved_grid_mom_cells,
             grid_res=cfg.ndt_resolution,
         )
-        self._mom = mom
-        cur._push_raw(scan)
-        cur.n_scans += 1
-        cur.proc, cur.proc_count = proc, count
+        self.commit_fused_add(scan, proc, count, target)
         return target
 
     def local_map(self) -> PointBuffer:

@@ -76,42 +76,17 @@ class CompactGrid(NamedTuple):
 
 def compact_grid(grid: NDTGrid, capacity: int) -> CompactGrid:
     """Compact `grid`'s valid cells, in cell-id order, into a
-    [capacity] table; cells beyond `capacity` are dropped.
-
-    The fixed-size nonzero is a cumsum and a scatter on the device (no
-    host sync, no data-dependent shape): valid cell c goes to slot
-    rank(c) when that is < capacity, everything else to a dump slot
-    that is sliced off; empty slots keep the fill id nx*ny."""
-    num_cells = grid.nx * grid.ny
-    dev = grid.valid.device
-    rank = torch.cumsum(grid.valid.to(torch.int64), 0) - 1
-    slot = torch.where(grid.valid & (rank < capacity), rank, capacity)
-    idx = torch.full((capacity + 1,), num_cells, dtype=torch.int64,
-                     device=dev)
-    idx.scatter_(0, slot, torch.arange(num_cells, device=dev))
-    idx = idx[:capacity]
-    ok = idx < num_cells
-    safe = torch.where(ok, idx, 0)
-    kx = (safe // grid.ny).to(torch.float32)
-    ky = (safe % grid.ny).to(torch.float32)
-    mean = grid.mean.index_select(0, safe)
-    icov = grid.inv_cov.index_select(0, safe)
-    cg = CompactGrid(
-        kx=torch.where(ok, kx, -1e9),
-        ky=torch.where(ok, ky, -1e9),
-        mx=torch.where(ok, mean[:, 0], 0.0),
-        my=torch.where(ok, mean[:, 1], 0.0),
-        b00=torch.where(ok, icov[:, 0, 0], 0.0),
-        b01=torch.where(ok, icov[:, 0, 1], 0.0),
-        b11=torch.where(ok, icov[:, 1, 1], 0.0),
-        valid=ok & grid.valid.index_select(0, safe),
-        origin=grid.origin,
-        nx=grid.nx,
-        ny=grid.ny,
-        resolution=grid.resolution,
-    )
-    cell_slot = torch.where(slot < capacity, rank, -1).to(torch.int32)
-    return cg._replace(table=table_rows(cg), cell_slot=cell_slot)
+    [capacity] table; cells beyond `capacity` are dropped. The table of
+    `compact_grids` for a batch of one window."""
+    gs = compact_grids(grid._replace(
+        origin=grid.origin[None], mean=grid.mean[None],
+        inv_cov=grid.inv_cov[None], valid=grid.valid[None]), capacity)
+    t = gs.table[0]
+    return CompactGrid(
+        kx=t[:, 0], ky=t[:, 1], mx=t[:, 2], my=t[:, 3], b00=t[:, 4],
+        b01=t[:, 5], b11=t[:, 6], valid=t[:, 7] > 0, origin=grid.origin,
+        nx=grid.nx, ny=grid.ny, resolution=grid.resolution, table=t,
+        cell_slot=gs.cell_slot[0])
 
 
 def table_rows(cg: CompactGrid) -> torch.Tensor:
@@ -246,6 +221,45 @@ class GridStack(NamedTuple):
     @property
     def capacity(self) -> int:
         return self.table.shape[1]
+
+
+def compact_grids(grid: NDTGrid, capacity: int) -> GridStack:
+    """The compact tables of B windows (a batched `grid`, [B] leading
+    every tensor, from `build_grid` over rows) as a `GridStack`, row b
+    the table and window index of window b alone.
+
+    The fixed-size nonzero is a cumsum and a scatter on the device (no
+    host sync, no data-dependent shape): valid cell c goes to slot
+    rank(c) when that is < capacity, everything else to a dump slot
+    that is sliced off; empty slots keep the fill id nx*ny."""
+    num_cells = grid.nx * grid.ny
+    dev = grid.valid.device
+    b = grid.valid.shape[0]
+    rank = torch.cumsum(grid.valid.to(torch.int64), -1) - 1
+    slot = torch.where(grid.valid & (rank < capacity), rank, capacity)
+    idx = torch.full((b, capacity + 1), num_cells, dtype=torch.int64,
+                     device=dev)
+    idx.scatter_(1, slot, torch.arange(num_cells, device=dev).expand(b, -1))
+    idx = idx[:, :capacity]
+    ok = idx < num_cells
+    safe = torch.where(ok, idx, 0)
+    mean = grid.mean.gather(1, safe[..., None].expand(-1, -1, 2))
+    icov = grid.inv_cov.reshape(b, num_cells, 4).gather(
+        1, safe[..., None].expand(-1, -1, 4))
+    valid = ok & grid.valid.gather(1, safe)
+    table = torch.stack([
+        torch.where(ok, (safe // grid.ny).to(torch.float32), -1e9),
+        torch.where(ok, (safe % grid.ny).to(torch.float32), -1e9),
+        torch.where(ok, mean[..., 0], 0.0),
+        torch.where(ok, mean[..., 1], 0.0),
+        torch.where(ok, icov[..., 0], 0.0),
+        torch.where(ok, icov[..., 1], 0.0),
+        torch.where(ok, icov[..., 3], 0.0),
+        valid.to(torch.float32),
+    ], dim=-1)
+    cell_slot = torch.where(slot < capacity, rank, -1).to(torch.int32)
+    return GridStack(table=table, cell_slot=cell_slot, origin=grid.origin,
+                     nx=grid.nx, ny=grid.ny, resolution=grid.resolution)
 
 
 def stack_grids(cgs) -> GridStack:

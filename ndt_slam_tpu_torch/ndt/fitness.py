@@ -9,9 +9,10 @@ cancel at map-scale coordinates and, on the card, could meet TF32.
 `nn_sq_dists` and `fitness_score_plain` here are the plain twins of
 the CUDA NN kernel's two entry points; `fitness_score` goes through
 `kernels.fitness_score`, which picks the kernel or the twin by device.
-`nn_sq_dists` also takes leading batch dimensions (the twin of the
-kernel's batch axis), and `nn_argmin` adds the index of the nearest
-target (the twin of its argmin form, for `ndt/icp`).
+`nn_sq_dists` and `fitness_score_plain` also take a leading batch
+dimension (the twins of the kernel's batch axis), and `nn_argmin` adds
+the index of the nearest target (the twin of its argmin form, for
+`ndt/icp`).
 """
 
 from __future__ import annotations
@@ -81,11 +82,13 @@ def nn_argmin(src_xy, src_mask, tgt_xy, tgt_mask, chunk: int = 4096):
 
 
 def fitness_score_plain(src_xy, src_mask, tgt_xy, tgt_mask):
-    """`fitness_score` in plain tensor operations, on any device."""
+    """`fitness_score` in plain tensor operations, on any device; [B,N,2]
+    sources against [B,M,2] targets give B means, each row's the mean of
+    that row alone."""
     d2 = nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask)
-    n = src_mask.sum(dtype=torch.float32)
-    have_tgt = tgt_mask.any()
-    total = torch.sum(torch.where(src_mask, d2, 0.0))
+    n = src_mask.sum(dim=-1, dtype=torch.float32)
+    have_tgt = tgt_mask.any(dim=-1)
+    total = torch.sum(torch.where(src_mask, d2, 0.0), dim=-1)
     mean = total / torch.clamp(n, min=1.0)
     return torch.where((n > 0) & have_tgt, mean, BIG)
 

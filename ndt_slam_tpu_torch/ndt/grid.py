@@ -11,7 +11,10 @@ VoxelGridCovariance (lambda_min floored at 0.01 lambda_max); cells with
 fewer than `min_pts` points are invalid.
 
 Two ways to the same grid. `build_grid` rescatters the whole target
-buffer into the frame's window. The incremental lattice keeps running
+buffer into the frame's window; it also takes B target buffers
+[B,L,2] and B window centers [B,2] (the lockstep batch runner, one
+sequence a row): one stable sort keyed by (row, cell) and the same
+front-to-back segment sums, so a row gets the bits of its own call. The incremental lattice keeps running
 moments instead: `moments_abs` keys cells by the absolute index
 floor(x / resolution), independent of any window origin, so moments of
 successive scans add up in a lattice wider than the window, and
@@ -31,6 +34,7 @@ from ndt_slam_tpu_torch.core.segment import segment_sum
 
 
 class NDTGrid(NamedTuple):
+    """One window, or [B] leading every tensor for B windows."""
     origin: torch.Tensor    # [2] lower-left corner of the window (world)
     mean: torch.Tensor      # [C, 2] per-cell mean
     inv_cov: torch.Tensor   # [C, 2, 2] per-cell inverse covariance
@@ -42,10 +46,11 @@ class NDTGrid(NamedTuple):
 
 def _inflate_and_invert(cov: torch.Tensor, eig_mult: float = 0.01):
     """Per-cell 2x2: floor lambda_min at eig_mult*lambda_max, invert.
-    cov: [C,2,2] symmetric. Returns ([C,2,2] inverse, [C] ok flag)."""
-    a = cov[:, 0, 0]
-    b = cov[:, 0, 1]
-    c = cov[:, 1, 1]
+    cov: [...,C,2,2] symmetric. Returns ([...,C,2,2] inverse, [...,C] ok
+    flag)."""
+    a = cov[..., 0, 0]
+    b = cov[..., 0, 1]
+    c = cov[..., 1, 1]
     tr_half = 0.5 * (a + c)
     det_root = torch.sqrt(torch.clamp(0.25 * (a - c) ** 2 + b * b, min=0.0))
     lam1 = tr_half + det_root  # lambda_max
@@ -80,34 +85,47 @@ def _inflate_and_invert(cov: torch.Tensor, eig_mult: float = 0.01):
 
 
 def grid_origin(center: torch.Tensor, nx: int, ny: int, resolution: float):
-    """Window origin centered on `center`, snapped to the cell lattice."""
+    """Window origin centered on `center` ([2], or [B,2]), snapped to the
+    cell lattice."""
     # the half extents as f32 products, like the JAX package's
     # f32 [nx, ny] * (resolution / 2) (no host-to-device copy)
     hx = float(np.float32(nx) * np.float32(resolution / 2.0))
     hy = float(np.float32(ny) * np.float32(resolution / 2.0))
-    corner = torch.stack([center[0] - hx, center[1] - hy])
+    corner = torch.stack([center[..., 0] - hx, center[..., 1] - hy], dim=-1)
     return torch.floor(corner / resolution) * resolution
 
 
 def grid_moments(xy, mask, origin, nx: int, ny: int, resolution: float):
-    """Per-cell (count, sx, sy, sxx, sxy, syy), each [nx*ny]."""
+    """Per-cell (count, sx, sy, sxx, sxy, syy), each [nx*ny]; B rows
+    ([B,L,2] points, [B,L] masks, [B,2] origins) give [B, nx*ny] each,
+    from one segment sum keyed by (row, cell)."""
     num_cells = nx * ny
-    rel = (xy - origin) / resolution
+    org = origin[..., None, :]
+    rel = (xy - org) / resolution
     ci = torch.floor(rel).to(torch.int32)
     in_bounds = (
-        (ci[:, 0] >= 0) & (ci[:, 0] < nx) & (ci[:, 1] >= 0) & (ci[:, 1] < ny)
+        (ci[..., 0] >= 0) & (ci[..., 0] < nx) & (ci[..., 1] >= 0)
+        & (ci[..., 1] < ny)
     )
     ok = mask & in_bounds
-    # invalid points go to the dropped segment (id == num_cells)
-    cid = torch.where(ok, ci[:, 0] * ny + ci[:, 1], num_cells)
-    cx = ci[:, 0].to(xy.dtype) * resolution + origin[0]
-    cy = ci[:, 1].to(xy.dtype) * resolution + origin[1]
-    xr = torch.where(ok, xy[:, 0] - cx, 0.0)
-    yr = torch.where(ok, xy[:, 1] - cy, 0.0)
+    cid = ci[..., 0] * ny + ci[..., 1]
+    rows_b = xy.shape[0] if xy.dim() == 3 else 1
+    if xy.dim() == 3:
+        # row r's cells are segments r*num_cells .. (r+1)*num_cells - 1
+        cid = cid + (torch.arange(rows_b, dtype=torch.int32,
+                                  device=xy.device) * num_cells)[:, None]
+    # invalid points go to the dropped segment (id == rows * num_cells)
+    cid = torch.where(ok, cid, rows_b * num_cells)
+    cx = ci[..., 0].to(xy.dtype) * resolution + org[..., 0]
+    cy = ci[..., 1].to(xy.dtype) * resolution + org[..., 1]
+    xr = torch.where(ok, xy[..., 0] - cx, 0.0)
+    yr = torch.where(ok, xy[..., 1] - cy, 0.0)
     ones = ok.to(xy.dtype)
     rows = torch.stack([ones, xr, yr, xr * xr, xr * yr, yr * yr], dim=-1)
-    acc = segment_sum(rows, cid, num_cells)
-    return tuple(acc[:, i] for i in range(6))
+    acc = segment_sum(rows.reshape(-1, 6), cid.reshape(-1),
+                      rows_b * num_cells)
+    acc = acc.reshape(*xy.shape[:-2], num_cells, 6)
+    return tuple(acc[..., i] for i in range(6))
 
 
 def _finalize(moments, corner_x, corner_y, origin, nx: int, ny: int,
@@ -132,8 +150,8 @@ def _finalize(moments, corner_x, corner_y, origin, nx: int, ny: int,
     # moments were cell-relative; restore absolute means
     mean = torch.stack([mx + corner_x, my + corner_y], dim=-1)
     # park invalid cells far away so a stray unmasked lookup scores ~0
-    mean = torch.where(valid[:, None], mean, 1.0e8)
-    inv_cov = torch.where(valid[:, None, None], inv_cov, 0.0)
+    mean = torch.where(valid[..., None], mean, 1.0e8)
+    inv_cov = torch.where(valid[..., None, None], inv_cov, 0.0)
     return NDTGrid(origin=origin, mean=mean, inv_cov=inv_cov, valid=valid,
                    nx=nx, ny=ny, resolution=resolution)
 
@@ -142,8 +160,9 @@ def grid_finalize(moments, origin, nx: int, ny: int, resolution: float,
                   min_pts: int = 6, eig_mult: float = 0.01) -> NDTGrid:
     """Turn moments into per-cell mean / inverse covariance."""
     cell = torch.arange(nx * ny, dtype=torch.int32, device=origin.device)
-    corner_x = (cell // ny).to(origin.dtype) * resolution + origin[0]
-    corner_y = (cell % ny).to(origin.dtype) * resolution + origin[1]
+    corner_x = ((cell // ny).to(origin.dtype) * resolution
+                + origin[..., 0:1])
+    corner_y = (cell % ny).to(origin.dtype) * resolution + origin[..., 1:2]
     return _finalize(moments, corner_x, corner_y, origin, nx, ny,
                      resolution, min_pts, eig_mult)
 
@@ -227,7 +246,8 @@ def _finalize_abs(moments, origin, anchor, nx: int, ny: int,
 
 def build_grid(xy, mask, center, nx: int, ny: int, resolution: float,
                min_pts: int = 6, eig_mult: float = 0.01) -> NDTGrid:
-    """Moments + finalize over an nx*ny window centered on `center`."""
+    """Moments + finalize over an nx*ny window centered on `center`;
+    [B,L,2] / [B,L] targets and [B,2] centers give B windows."""
     origin = grid_origin(center, nx, ny, resolution)
     m = grid_moments(xy, mask, origin, nx, ny, resolution)
     return grid_finalize(m, origin, nx, ny, resolution, min_pts, eig_mult)

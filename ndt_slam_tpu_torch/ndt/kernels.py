@@ -21,6 +21,13 @@ same kernels and of XLA code; no Pallas original of their own):
 | `nn_sq_dists_batched`       | kernel 3 with a batch axis      | `fitness.nn_sq_dists` over the batch |
 | `nn_argmin`                 | kernel 3, argmin form, batched  | `fitness.nn_argmin` |
 
+For the lockstep batch runner (`pipeline/batch_runner.py`; in JAX a
+`vmap` of the registration step over the Pallas calls):
+
+| wrapper                 | kernel                              | plain twin |
+|-------------------------|-------------------------------------|------------|
+| `fitness_score_batched` | kernel 3 with a batch axis, the mean a row | `fitness.fitness_score_plain` over the batch |
+
 The device of the input tensors picks the route: a CPU tensor runs the
 twin; a CUDA tensor launches the kernel or raises. There is no
 fallback. Each wrapper counts its calls that launched in `.launches`;
@@ -370,7 +377,7 @@ def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness: bool = False,
     """Check the operands, allocate the outputs and the scratch, launch
     `nn_kernel` and its finish step over the batch rows of [B,N,2] /
     [B,M,2] operands ([N,2] / [M,2]: one row). Returns d2 ([B,N] or
-    [N]), the fitness scalar, or (d2, idx). N, M >= 1."""
+    [N]), the fitness mean ([B] or a scalar), or (d2, idx). N, M >= 1."""
     lead = tuple(src_xy.shape[:-2])
     batch = src_xy.shape[0] if lead else 1
     n, m, device = src_xy.shape[-2], tgt_xy.shape[-2], src_xy.device
@@ -381,7 +388,7 @@ def _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness: bool = False,
                             device=device) if argmin else None)
     live = torch.empty((batch, tiles, blocks), dtype=torch.int32,
                        device=device)
-    out = torch.empty(() if fitness else (*lead, n), dtype=torch.float32,
+    out = torch.empty(lead if fitness else (*lead, n), dtype=torch.float32,
                       device=device)
     idx = (torch.empty((*lead, n), dtype=torch.int32, device=device)
            if argmin else None)
@@ -480,11 +487,34 @@ def nn_argmin(src_xy, src_mask, tgt_xy, tgt_mask):
     return out
 
 
+def fitness_score_batched(src_xy, src_mask, tgt_xy, tgt_mask):
+    """`fitness_score` of B independent problems: [B,N,2], [B,N],
+    [B,M,2], [B,M] -> [B] (the lockstep batch runner's fitness call,
+    one row a sequence).
+
+    CUDA: kernel 3 with its batch axis and the fitness form of its
+    finish step, one cluster a row: two launches for all B. Each row
+    sums its valid sources in an order that depends on N only, so row b
+    equals `fitness_score` of row b alone bit for bit. CPU:
+    `fitness.fitness_score_plain` over the batch."""
+    _check_batch(src_xy, tgt_xy)
+    if not _route(src_xy):
+        return _fitness_plain(src_xy, src_mask, tgt_xy, tgt_mask)
+    b, n = src_xy.shape[:2]
+    if b == 0 or n == 0 or tgt_xy.shape[1] == 0:
+        return torch.full((b,), BIG, dtype=torch.float32,
+                          device=src_xy.device)
+    out = _launch_nn(src_xy, src_mask, tgt_xy, tgt_mask, fitness=True)
+    fitness_score_batched.launches += 1
+    return out
+
+
 # kernel name -> the wrappers that launch it
 WRAPPERS = {
     "sgh": (ndt_score_grad_hess, ndt_score_grad_hess_grids),
     "score_many": (ndt_scores, ndt_scores_grids),
-    "nn": (nn_sq_dists, fitness_score, nn_sq_dists_batched, nn_argmin),
+    "nn": (nn_sq_dists, fitness_score, nn_sq_dists_batched, nn_argmin,
+           fitness_score_batched),
 }
 
 

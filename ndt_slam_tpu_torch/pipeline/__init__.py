@@ -1,1 +1,2 @@
-"""Per-frame front end and the host loop over a log."""
+"""Per-frame front end, the host loop over a log and the lockstep
+batch runner over several."""

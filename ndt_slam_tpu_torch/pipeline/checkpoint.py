@@ -92,7 +92,11 @@ def save_checkpoint(fe: FrontEnd, path: str) -> None:
     for i, s in enumerate(pm.local_scans):
         arrays[f"local_scan_{i}"] = np.asarray(s)
 
-    dev = {"last_cov": fe.last_cov}
+    dev = {}
+    if isinstance(fe.last_cov, np.ndarray):   # a lockstep batch row's
+        arrays["last_cov"] = fe.last_cov.astype(np.float32)
+    else:
+        dev["last_cov"] = fe.last_cov
 
     def put(name: str, buf):
         dev[name + "_xy"], dev[name + "_mask"] = buf.xy, buf.mask

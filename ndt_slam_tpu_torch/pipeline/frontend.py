@@ -24,6 +24,12 @@ per-frame small outputs come back to the host in one device-to-host
 copy (a second one only for a frame whose window escaped the lattice
 and is redone through the full rebuild).
 
+`_registration_step` also takes a leading batch dimension: the lockstep
+batch runner (`pipeline/batch_runner.py`) registers B sequences a tick
+in one call and runs each sequence's FrontEnd in batch mode
+(`_defer_map`), where the carries stay on the host and the map update
+is left to the runner's batched map step.
+
 Parity notes: cost is forced to failed_cost when the solve is unusable;
 accept iff cost <= score_thre (and the innovation gates hold); on
 reject the pose is the odometry prediction and the covariance grows by
@@ -47,8 +53,9 @@ from ndt_slam_tpu_torch.graph.backend import GraphBackend
 from ndt_slam_tpu_torch.io import native
 from ndt_slam_tpu_torch.mapping.pointcloud_map import PointCloudMap
 from ndt_slam_tpu_torch.mapping.voxel import voxel_filter
-from ndt_slam_tpu_torch.ndt.compact import compact_grid
+from ndt_slam_tpu_torch.ndt.compact import compact_grid, compact_grids
 from ndt_slam_tpu_torch.ndt.fitness import fitness_score
+from ndt_slam_tpu_torch.ndt.kernels import fitness_score_batched
 from ndt_slam_tpu_torch.ndt.grid import (
     build_grid, lattice_anchor, moments_abs, window_grid_from_lattice,
 )
@@ -73,16 +80,17 @@ class FrameResult(NamedTuple):
     def small(self) -> torch.Tensor:
         """[24] float32: fused(3) cov(9) cost successful iterations
         matched trans_probability est(3) error(3) grid_ok, so the host
-        fetches a frame's small outputs in one copy."""
+        fetches a frame's small outputs in one copy; [B,24] for the B
+        rows of a lockstep tick."""
         return torch.cat([
-            self.fused_pose, self.cov.reshape(-1),
+            self.fused_pose, self.cov.flatten(-2),
             torch.stack([
                 self.cost, self.successful.to(torch.float32),
                 self.iterations.to(torch.float32), self.matched,
                 self.trans_probability,
-            ]),
-            self.est_pose, self.error_pose, self.grid_ok[None],
-        ])
+            ], dim=-1),
+            self.est_pose, self.error_pose, self.grid_ok[..., None],
+        ], dim=-1)
 
 
 class StageTimer:
@@ -132,21 +140,32 @@ class StageTimer:
 def _registration_step(cfg: SlamConfig, scan_xy, scan_mask, odo_pose,
                        prev_odo, last_pose, last_cov, local_xy, local_mask,
                        timer: Optional[StageTimer] = None) -> FrameResult:
-    """Registration against a grid rebuilt from the whole target."""
+    """Registration against a grid rebuilt from the whole target.
+
+    With a leading batch dimension on every input ([B,S,2] scans, [B,3]
+    poses, [B,3,3] covariances, [B,L,2] targets) it registers B
+    independent sequences at once, the JAX package's `vmap` of this
+    step (the lockstep batch runner): one grid build keyed by (row,
+    cell), one `GridStack` of B tables, the row axis of `align` with
+    row b against grid b, one fitness call for all rows, the fusion over
+    rows. Every field of the result then leads with [B]. A row whose
+    masks are all False (an idle sequence) matches nothing, so its solve
+    ends at the first iteration and holds no other row back."""
     # --- odometry prediction
     odo_motion = pose2.cal_motion(odo_pose, prev_odo)
     pred_pose = pose2.cal_pred_pose(odo_motion, last_pose)
 
     # --- NDT grid over the local map, window centered on the prediction
     grid = build_grid(
-        local_xy, local_mask, pred_pose[:2],
+        local_xy, local_mask, pred_pose[..., :2],
         cfg.grid_cells_x, cfg.grid_cells_y, cfg.ndt_resolution,
         min_pts=cfg.ndt_min_points_per_cell,
     )
     return _register_with_grid(
         cfg, grid, scan_xy, scan_mask, odo_pose, odo_motion, pred_pose,
         last_pose, last_cov, local_xy, local_mask,
-        grid_ok=torch.ones((), dtype=torch.float32, device=scan_xy.device),
+        grid_ok=torch.ones(scan_xy.shape[:-2], dtype=torch.float32,
+                           device=scan_xy.device),
         timer=timer,
     )
 
@@ -197,14 +216,22 @@ def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
                         local_xy, local_mask, grid_ok,
                         timer: Optional[StageTimer] = None) -> FrameResult:
     """The tail both registration steps share: source downsample,
-    compact table, align, fitness, gate + fuse, map-frame points."""
+    compact table, align, fitness, gate + fuse, map-frame points (over
+    rows when the inputs lead with a batch dimension)."""
     mark = timer.mark if timer is not None else (lambda name: None)
     mark("grid")
+    rows = scan_xy.dim() == 3
 
     # --- source downsample, compact table
     src = voxel_filter(PointBuffer(scan_xy, scan_mask), cfg.source_leaf_size)
     mark("source_filter")
-    cgrid = compact_grid(grid, cfg.ndt_max_active_cells)
+    if rows:
+        cgrid = compact_grids(grid, cfg.ndt_max_active_cells)
+        grid_index = torch.arange(scan_xy.shape[0], dtype=torch.int32,
+                                  device=scan_xy.device)
+    else:
+        cgrid = compact_grid(grid, cfg.ndt_max_active_cells)
+        grid_index = None
     mark("compact")
     d1, d2 = gauss_constants(cfg.ndt_resolution, cfg.ndt_outlier_ratio)
 
@@ -214,14 +241,16 @@ def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
         step_size=cfg.ndt_step_size,
         trans_eps=cfg.ndt_trans_eps,
         radius=cfg.ndt_neighborhood,
+        grid_index=grid_index,
     )
     est_pose = pose2.pose_rad_to_deg(res.pose_rad)
     mark("align")
 
     # --- fitness at the converged pose, on the downsampled source
     src_map = pose2.global_points(est_pose, src.xy)
-    src_map = torch.where(src.mask[:, None], src_map, PAD_COORD)
-    fit = fitness_score(src_map, src.mask, local_xy, local_mask)
+    src_map = torch.where(src.mask[..., None], src_map, PAD_COORD)
+    fitness = fitness_score_batched if rows else fitness_score
+    fit = fitness(src_map, src.mask, local_xy, local_mask)
     cost = torch.where(res.converged, fit, cfg.failed_cost)
     mark("fitness")
 
@@ -232,9 +261,9 @@ def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
     )
     # scan into the map frame at the fused pose (growMap input)
     g = pose2.global_points(fused, scan_xy)
-    g = torch.where(scan_mask[:, None], g, PAD_COORD)
+    g = torch.where(scan_mask[..., None], g, PAD_COORD)
     error_pose = pose2.cal_global_motion(fused, odo_pose)
-    n_src = src.mask.sum(dtype=torch.float32)
+    n_src = src.mask.sum(dim=-1, dtype=torch.float32)
     trans_prob = -res.objective / torch.clamp(n_src, min=1.0)
     mark("fuse")
     return FrameResult(
@@ -285,6 +314,16 @@ class FrontEnd:
         self.t_backend = 0.0
         self.t_remake = 0.0
         self.n_corrections = 0
+        # lockstep batch mode (pipeline/batch_runner.py): the runner
+        # registers every sequence of a tick in one batched step and
+        # runs their map updates as one batched map step, so a frame's
+        # map update is left in _pending_scan (the runner's ("slot", i)
+        # sentinel or a map-frame PointBuffer) and the carries stay on
+        # the host; _map_rewritten tells the runner that a correction
+        # rebuilt this map, so its stacked copy is stale
+        self._defer_map = False
+        self._pending_scan = None
+        self._map_rewritten = False
         self.backend = None
         if cfg.loop_enable:
             self.backend = GraphBackend(cfg, self.device)
@@ -315,8 +354,8 @@ class FrontEnd:
             g = pose2.global_points(odo_dev, scan.xy)
             g = torch.where(scan.mask[:, None], g, PAD_COORD)
             self._grow_map(PointBuffer(g, scan.mask), odo, rs, scan)
-            self.last_cov = torch.zeros((3, 3), dtype=torch.float32,
-                                        device=self.device)
+            self.last_cov = (cov if self._defer_map else torch.zeros(
+                (3, 3), dtype=torch.float32, device=self.device))
             self.prev_odo = odo
             self._last_pose_dev = odo_dev
             self._prev_odo_dev = odo_dev
@@ -332,13 +371,7 @@ class FrontEnd:
                 self.backend.add_frame(sid, odo, cov, scan)
             return rec
 
-        local = self.pcmap.registration_target()
-        prev_odo_dev = (self._prev_odo_dev if self._prev_odo_dev is not None
-                        else torch.from_numpy(self.prev_odo).to(self.device))
-        last_pose_dev = (
-            self._last_pose_dev if self._last_pose_dev is not None
-            else torch.from_numpy(self.pcmap.get_last_pose()).to(self.device)
-        )
+        prev_odo_dev, last_pose_dev, local = self._frame_inputs()
         out = self._run_step(scan, odo_dev, prev_odo_dev, last_pose_dev,
                              local)
         small = out.small().cpu().numpy()   # the frame's one fetch
@@ -355,6 +388,21 @@ class FrontEnd:
         self.timer.resolve()
         return self._finish_frame(out, small, scan, rs, odo, odo_dev, sid)
 
+    def _frame_inputs(self):
+        """The registration step's device inputs besides the scan and
+        the odometry: (prev_odo, last_pose, target). The carries come
+        from the device when the last frame left them there, else from
+        the host. (The lockstep runner stacks its rows' carries from the
+        host and their targets itself.)"""
+        local = self.pcmap.registration_target()
+        prev_odo_dev = (self._prev_odo_dev if self._prev_odo_dev is not None
+                        else torch.from_numpy(self.prev_odo).to(self.device))
+        last_pose_dev = (
+            self._last_pose_dev if self._last_pose_dev is not None
+            else torch.from_numpy(self.pcmap.get_last_pose()).to(self.device)
+        )
+        return prev_odo_dev, last_pose_dev, local
+
     def _run_step(self, scan: PointBuffer, odo_dev, prev_odo_dev,
                   last_pose_dev, local: PointBuffer) -> FrameResult:
         """The frame's registration: against the moment lattice when the
@@ -362,7 +410,8 @@ class FrontEnd:
         escape, which re-arms the lattice path) against a full
         rebuild."""
         cfg = self.cfg
-        if self.incremental_grid and not self._force_full_grid:
+        if (self.incremental_grid and not self._defer_map
+                and not self._force_full_grid):
             mom, anchor = self.pcmap.mom_state()
             newest = self.pcmap.newest_raw()
             include_newest = bool(cfg.remove_moving and newest is not None)
@@ -381,16 +430,28 @@ class FrontEnd:
             self.last_cov, local.xy, local.mask, timer=self.timer,
         )
 
-    def _finish_frame(self, out: FrameResult, small: np.ndarray,
+    def _finish_frame(self, out: Optional[FrameResult], small: np.ndarray,
                       scan: PointBuffer, rs_local: np.ndarray,
-                      odo: np.ndarray, odo_dev, sid: int) -> dict:
+                      odo: np.ndarray, odo_dev, sid: int,
+                      pending=None) -> dict:
+        """The frame's bookkeeping after its fetch `small` ([24]): the
+        carries, the map, the record, the back end. In batch mode
+        (`_defer_map`; `out` and `odo_dev` may be None) the carries stay
+        on the host, where the runner stacks them for the next tick, and
+        the map update is the runner's `pending` (see `_grow_map`)."""
         fused = small[0:3].copy()
         cov = small[3:12].reshape(3, 3).copy()
-        self.last_cov = out.cov
-        self._last_pose_dev = out.fused_pose
-        self._prev_odo_dev = odo_dev
-        self._grow_map(PointBuffer(out.global_xy, scan.mask), fused,
-                       rs_local, scan)
+        if self._defer_map:
+            self.last_cov = cov
+            self._last_pose_dev = None
+            self._prev_odo_dev = None
+            scan_map = pending
+        else:
+            self.last_cov = out.cov
+            self._last_pose_dev = out.fused_pose
+            self._prev_odo_dev = odo_dev
+            scan_map = PointBuffer(out.global_xy, scan.mask)
+        self._grow_map(scan_map, fused, rs_local, scan)
         self.prev_odo = odo
         self.cnt += 1
         self.timer.mark("map")
@@ -444,13 +505,25 @@ class FrontEnd:
         self.pose_history = [p.astype(np.float32) for p in corrected_deg]
         self.pcmap.remake_maps(corrected_deg)
         self._last_pose_dev = None
+        # the rewrite replayed every recorded scan, this frame's too: a
+        # deferred map update is superseded, a stacked copy stale
+        self._pending_scan = None
+        self._map_rewritten = True
 
-    def _grow_map(self, scan_map_frame: PointBuffer, fused_pose: np.ndarray,
+    def _grow_map(self, scan_map_frame, fused_pose: np.ndarray,
                   rs_local: np.ndarray, scan_local: PointBuffer):
+        """Pose, map update, last pose and scan, the scan kept for a
+        rewrite. In batch mode the map update is left to the runner:
+        `scan_map_frame` may then be its ("slot", i) sentinel, and the
+        runner restores `last_scan` when it hands the map back."""
         self.pcmap.add_pose(fused_pose)
-        self.pcmap.add_points(scan_map_frame)
+        if self._defer_map:
+            self._pending_scan = scan_map_frame
+        else:
+            self.pcmap.add_points(scan_map_frame)
         self.pcmap.set_last_pose(fused_pose)
-        self.pcmap.set_last_scan(scan_map_frame)
+        if isinstance(scan_map_frame, PointBuffer):
+            self.pcmap.set_last_scan(scan_map_frame)
         self.pcmap.record_local_scan(rs_local, padded=scan_local)
 
     def _record(self, fused, cov, rec):

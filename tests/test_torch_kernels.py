@@ -20,6 +20,11 @@ with one grid bit for bit against the single-grid call; the nearest-
 neighbour kernel's batch axis and argmin form at the verifier's shapes
 ([4, 2048] against [4, 2048]) and at full load, distances bit for bit
 and indices equal, over ties, NaNs and masks.
+
+The lockstep batch's variant: the fitness mean with a batch axis at
+[4, 2048] against [4, 131072], each row bit for bit the single call on
+that row, the twin to rtol 1e-6, idle rows (no source, no target) and
+one row.
 """
 
 import numpy as np
@@ -456,3 +461,37 @@ def test_nn_argmin_ties_nan_and_masks(cuda, case):
         assert bool((idx[2][args[1][2]] == first).all())
     elif case == "masked_nan_target":
         assert bool(torch.isfinite(d2).all())
+
+
+def _fitness_batch(cuda, b, n=2048, m=131072, seed=21):
+    """[b, n] sources against [b, m] targets: walls of their own a row,
+    sources on them a few cm off, live prefixes of different lengths."""
+    rng = np.random.default_rng(seed)
+    tgt = (rng.uniform(-20, 20, (b, m, 2))).astype(np.float32)
+    src = (tgt[:, :n] + rng.normal(0, 0.05, (b, n, 2))).astype(np.float32)
+    sm = np.arange(n)[None] < rng.integers(50, n, (b, 1))
+    tm = rng.random((b, m)) < rng.uniform(0.02, 0.9, (b, 1))
+    t = lambda x: torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+    return t(src), t(sm), t(tgt), t(tm)
+
+
+@pytest.mark.parametrize("case", ["rows", "idle rows", "one row"])
+def test_fitness_batched_equals_twin_and_single_calls(cuda, case):
+    """`fitness_score_batched`: each row equal to `fitness_score` of that
+    row alone bit for bit (the finish sums in an order of N only), and to
+    the twin to rtol 1e-6 (one sum in another order); an idle row (no
+    source, or no target) gives 1e12."""
+    b = 1 if case == "one row" else 4
+    src, sm, tgt, tm = _fitness_batch(cuda, b)
+    if case == "idle rows":
+        sm[1] = False
+        tm[2] = False
+    got = kernels.fitness_score_batched(src, sm, tgt, tm)
+    want = fitness_score_plain(src, sm, tgt, tm)
+    assert got.shape == (b,)
+    for k in range(b):
+        one = kernels.fitness_score(src[k], sm[k], tgt[k], tm[k])
+        assert torch.equal(got[k].view(torch.int32), one.view(torch.int32))
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-6)
+    if case == "idle rows":
+        assert _np(got)[1] == _np(got)[2] == np.float32(BIG)
