@@ -88,7 +88,21 @@ Phases, one line each (any failure exits non-zero):
      B = 1, 2, 4 and 8 beside the sequential frames/s of the same
      windows; [suite] cli/eval_suite_torch.py over suite.json in its
      per-entry mode on the card: every entry within its bound, accept
-     >= 0.95.
+     >= 0.95;
+  9. [pipeline] the pipelined front end (PIPE_DEPTH frames in flight),
+     each run bit for bit against its synchronous run above: all 500
+     frames on the full rebuild (launch counts set to 0 just before:
+     the kernels' `launches_pipeline`) with its rollbacks, frames/s
+     beside [main]'s and the device-to-host copies a frame over frames
+     40-59 beside the synchronous path's; all 500 on the lattice, with
+     rollbacks; the 30-frame escape run; all 500 with loops on (the
+     same loops and corrections as [loop], frames replayed after a
+     correction; the variants' `launches_pipeline`); a checkpoint taken
+     with frames in flight after frame 14 and resumed;
+ 10. [gather] the dense-window gather engine: 150 office_loop frames at
+     the default config on the card, ATE and accept rate beside the
+     compact engine's [main] over the same frames, and 15 frames at the
+     small capacities, card against CPU within 0.05 m and 0.3 deg.
 The last line is the JSON result; the kernels' JSON line and the
 card's name and power limit come just before it.
 """
@@ -137,6 +151,11 @@ VARIANT_WRAPPERS = {"sgh_grids": "ndt_score_grad_hess_grids",
                     "score_many_grids": "ndt_scores_grids",
                     "nn_batched": "nn_sq_dists_batched",
                     "nn_argmin": "nn_argmin"}
+# the rows whose [pipeline] launches are read by wrapper (the loops-on run)
+PIPELINE_WRAPPERS = {**VARIANT_WRAPPERS,
+                     "fitness_batched": "fitness_score_batched"}
+PIPE_DEPTH = 8             # frames in flight of the [pipeline] runs
+GATHER_FRAMES = 150        # office_loop frames of the [gather] run
 
 
 def _require(ok, what):
@@ -821,21 +840,32 @@ def _time_lattice_pieces(cfg, tgt, newest, keep, mom, anchor, fa, pred,
 def _d2h_copies_per_frame(cfg, frames, device, warm=40, window=20):
     """(device-to-host copies and device operations a frame over the
     `window` steady frames after `warm`, from a torch.profiler trace; the
-    windows escaped). A session that lost an edge is made again on a
-    front end run anew to the same frame."""
+    windows escaped). With a pipeline depth the front end is the
+    pipelined one, drained before the window and at its last frame, so
+    that the window holds the fetches of its own frames. A session that
+    lost an edge is made again on a front end run anew to the same
+    frame."""
     import torch
+    from ndt_slam_tpu_torch.pipeline.async_frontend import PipelinedFrontEnd
     from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
 
+    pipelined = cfg.resolved_pipeline_depth("cuda") > 0
     for _ in range(PROFILE_TRIES):
-        fe = FrontEnd(cfg, device)
+        fe = (PipelinedFrontEnd(cfg, device) if pipelined
+              else FrontEnd(cfg, device))
         for fr in frames[:warm]:
             fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+        if pipelined:
+            fe.drain()
         torch.cuda.synchronize()
         upcoming = iter(frames[warm:warm + window])
+        last = frames[warm + window - 1].stamp
 
         def step():
             fr = next(upcoming)
             fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+            if pipelined and fr.stamp == last:
+                fe.drain()
 
         dev, ok, note = _profile_session(step, window)
         if ok:
@@ -1982,6 +2012,180 @@ def _check_loop_determinism(frames, device, cfg, closed):
           f"equal", flush=True)
 
 
+def _same_run(a, b) -> bool:
+    """Two front ends' poses and covariances bitwise equal."""
+    return (a.get_poses().tobytes() == b.get_poses().tobytes()
+            and np.stack(a.cov_history).tobytes()
+            == np.stack(b.cov_history).tobytes())
+
+
+def _frames_per_s(fe) -> float:
+    return len(fe.pose_history) / fe.metrics[-1]["wall_s"]
+
+
+def _check_pipeline(frames, gt, device, sync, d2h_sync):
+    """[pipeline] the pipelined front end at PIPE_DEPTH frames in flight,
+    each run held bit for bit to its synchronous run of this process
+    (`sync`: name -> (config, front end)): all 500 frames on the full
+    rebuild (what -1 runs on cuda, through `_run_main_path`, launch
+    counts set to 0 just before) with its rollbacks, frames/s and the
+    device-to-host copies a frame over frames 40-59 beside the
+    synchronous path's `d2h_sync`; all 500 on the lattice (rollbacks on
+    its submap closes); the 30-frame escape run; all 500 with loops on
+    (the same loops and corrections, replays after the corrections,
+    launch counts set to 0 just before); and a checkpoint taken with
+    frames in flight after frame 14, resumed to frame 29, against the
+    uninterrupted run. Returns (launch counts of the full-rebuild run by
+    kernel, of the loops-on run by wrapper)."""
+    import torch
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.pipeline.async_frontend import PipelinedFrontEnd
+    from ndt_slam_tpu_torch.pipeline.checkpoint import (
+        load_checkpoint, save_checkpoint,
+    )
+    from ndt_slam_tpu_torch.pipeline.runner import run_slam
+
+    depth = dict(pipeline_depth=PIPE_DEPTH)
+    full, fe_full = sync["main"]
+    fe, counts = _run_main_path("pipeline", frames, gt,
+                                full.replace(**depth), device)
+    _require(isinstance(fe, PipelinedFrontEnd) and fe.depth == PIPE_DEPTH,
+             "[pipeline] ran the pipelined front end")
+    _require(_same_run(fe, fe_full),
+             "[pipeline] full rebuild: poses and covariances bitwise equal "
+             "to [main]'s")
+    d2h, ops, _ = _d2h_copies_per_frame(full.replace(**depth), frames,
+                                        device)
+    print(f"[pipeline] full rebuild, depth {PIPE_DEPTH}, all "
+          f"{len(fe.pose_history)} frames: poses and covariances bitwise "
+          f"equal to [main]; {fe.n_rollbacks} rollbacks, {fe.n_replayed} "
+          f"replayed; {_frames_per_s(fe):.2f} frames/s ([main] "
+          f"{_frames_per_s(fe_full):.2f}); frames 40-59: {d2h:g} "
+          f"device-to-host copies and {ops:g} device operations a frame "
+          f"(depth 0: {d2h_sync:g})", flush=True)
+    _require(d2h <= d2h_sync, "[pipeline] no more copies a frame than "
+             "the synchronous path")
+
+    inc, fe_inc = sync["main-inc"]
+    fe_i = run_slam(frames, inc.replace(**depth), device)
+    _require(fe_i.incremental_grid and _same_run(fe_i, fe_inc)
+             and fe_i.n_rollbacks > 0,
+             "[pipeline] lattice: bitwise equal to [main-inc], with "
+             "rollbacks")
+    print(f"[pipeline] lattice, all {len(fe_i.pose_history)} frames: "
+          f"bitwise equal to [main-inc]; {fe_i.n_rollbacks} rollbacks, "
+          f"{fe_i.n_replayed} replayed; {_frames_per_s(fe_i):.2f} frames/s "
+          f"([main-inc] {_frames_per_s(fe_inc):.2f})", flush=True)
+
+    esc, fe_esc = sync["escape"]
+    fe_e = run_slam(frames, esc.replace(**depth), device)
+    _require(_same_run(fe_e, fe_esc) and fe_e.n_grid_fallbacks
+             == fe_esc.n_grid_fallbacks > 0,
+             "[pipeline] escape: bitwise equal to the synchronous escape "
+             "run, the same windows redone")
+    print(f"[pipeline] escape, 30 frames: bitwise equal to [escape]; "
+          f"{fe_e.n_grid_fallbacks} windows redone, {fe_e.n_rollbacks} "
+          f"rollbacks, {fe_e.n_replayed} replayed", flush=True)
+
+    loop, fe_loop = sync["loop"]
+    kernels.reset_launch_counts()
+    fe_l = run_slam(frames, loop.replace(**depth), device)
+    torch.cuda.synchronize()
+    wrappers = kernels.wrapper_launch_counts()
+    be, be_s = fe_l.backend, fe_loop.backend
+    _require(_same_run(fe_l, fe_loop)
+             and be.loops_accepted == be_s.loops_accepted >= 1
+             and fe_l.n_corrections == fe_loop.n_corrections >= 1
+             and fe_l.n_replayed >= 1,
+             "[pipeline] loops on: bitwise equal to [loop], the same loops "
+             "and corrections, frames replayed after a correction")
+    print(f"[pipeline] loops on, all {len(fe_l.pose_history)} frames: "
+          f"bitwise equal to [loop]; loops accepted {be.loops_accepted}, "
+          f"corrections {fe_l.n_corrections}; {fe_l.n_rollbacks} rollbacks, "
+          f"{fe_l.n_replayed} replayed; {_frames_per_s(fe_l):.2f} frames/s "
+          f"([loop] {_frames_per_s(fe_loop):.2f}); launches by wrapper "
+          f"{wrappers}", flush=True)
+
+    cfg = full.replace(**depth)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "state.npz")
+        fe_r = PipelinedFrontEnd(cfg, device)
+        for fr in frames[:15]:
+            fe_r.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+        in_flight = len(fe_r._queue)
+        _require(in_flight > 0, "[pipeline] frames in flight at frame 14")
+        save_checkpoint(fe_r, ckpt)
+        loaded = load_checkpoint(ckpt, device, cfg)
+    _require(isinstance(loaded, PipelinedFrontEnd) and loaded.cnt == 15,
+             "[pipeline] the checkpoint loads into a pipelined front end")
+    for fr in frames[15:DETERMINISM_FRAMES]:
+        loaded.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+    loaded.finalize()
+    _require(loaded.get_poses().tobytes()
+             == fe_full.get_poses()[:DETERMINISM_FRAMES].tobytes(),
+             "[pipeline] resumed from a checkpoint taken with frames in "
+             "flight: the uninterrupted run's poses bit for bit")
+    print(f"[pipeline] resume: checkpoint after frame 14 with {in_flight} "
+          f"frames in flight (drained by the save), frames 15-29 from the "
+          f"loaded file: poses bitwise equal to the uninterrupted run",
+          flush=True)
+    return counts, wrappers
+
+
+def _check_gather(frames, gt, device, full, fe_full):
+    """[gather] the dense-window gather engine (tensor code, no kernel of
+    its own): GATHER_FRAMES office_loop frames at the default config on
+    the card, held to suite.json's office_default bound and the accept
+    bound, with its ATE, accept rate and largest pose gap beside the
+    compact engine's [main] run over the same frames; and the first 15
+    frames at the small capacities, card against the CPU, within 0.05 m
+    and 0.3 deg."""
+    import torch
+    from ndt_slam_tpu_torch.config import SlamConfig
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.pipeline.runner import run_slam
+
+    n = GATHER_FRAMES
+    kernels.reset_launch_counts()
+    fe = run_slam(frames, full.replace(ndt_engine="gather", end_frame=n),
+                  device)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    poses = fe.get_poses()
+    _require(poses.shape == (n, 3) and np.isfinite(poses).all(),
+             f"[gather] {n} finite poses")
+    ate = ate_rmse(poses, gt[:n])
+    ate_c = ate_rmse(fe_full.get_poses()[:n], gt[:n])
+    acc = float(np.mean([bool(m.get("successful")) for m in fe.metrics]))
+    acc_c = float(np.mean([bool(m.get("successful"))
+                           for m in fe_full.metrics[:n]]))
+    gap = np.hypot(*(poses[:, :2] - fe_full.get_poses()[:n, :2]).T)
+    apart = int(np.argmax(gap > 0.05)) if (gap > 0.05).any() else None
+    print(f"[gather] {n} frames, default config: ATE {ate:.4f} m, accept "
+          f"{acc:.4f}, {_frames_per_s(fe):.2f} frames/s; the compact engine "
+          f"([main]) over the same frames: ATE {ate_c:.4f} m, accept "
+          f"{acc_c:.4f}; the two trajectories at most {gap.max():.4f} m "
+          f"apart, first 5 cm apart at frame {apart}; launches {counts}",
+          flush=True)
+    _require(ate < ATE_BOUND and acc >= ACCEPT_BOUND,
+             f"[gather] ATE {ate} < {ATE_BOUND} m, accept {acc} >= "
+             f"{ACCEPT_BOUND}")
+    _require(counts["sgh"] == counts["score_many"] == 0 < counts["nn"],
+             "[gather] the gather engine solves without the window kernels")
+    small = SlamConfig.small(end_frame=15, ndt_engine="gather")
+    on_card = run_slam(frames, small, device).get_poses()
+    on_cpu = run_slam(frames, small, torch.device("cpu")).get_poses()
+    dxy = float(np.hypot(on_card[:, 0] - on_cpu[:, 0],
+                         on_card[:, 1] - on_cpu[:, 1]).max())
+    dth = float(np.abs((on_card[:, 2] - on_cpu[:, 2] + 180.0) % 360.0
+                       - 180.0).max())
+    print(f"[gather] 15 frames, small config, card vs CPU: max {dxy:.3g} m, "
+          f"{dth:.3g} deg", flush=True)
+    _require(on_card.shape == (15, 3) and dxy <= 0.05 and dth <= 0.3,
+             "[gather] card and CPU agree on the first 15 frames")
+
+
 def main() -> int:
     import torch
 
@@ -2069,8 +2273,8 @@ def main() -> int:
 
     # an escape: a lattice no wider than the window
     off30 = run_slam(frames, full.replace(end_frame=30), device).get_poses()
-    fe_esc = run_slam(frames, inc.replace(end_frame=30, grid_mom_cells=192),
-                      device)
+    escape = inc.replace(end_frame=30, grid_mom_cells=192)
+    fe_esc = run_slam(frames, escape, device)
     esc30 = fe_esc.get_poses()
     d_esc = float(np.hypot(esc30[:, 0] - off30[:, 0],
                            esc30[:, 1] - off30[:, 1]).max())
@@ -2165,6 +2369,20 @@ def main() -> int:
     lap("batch")
     _check_suite()
     lap("suite")
+
+    # 9. the pipelined front end, each run against its synchronous run
+    # above, and 10. the gather engine
+    counts_pipe, wrappers_pipe = _check_pipeline(
+        frames, gt, device,
+        {"main": (full, fe_full), "main-inc": (inc, fe),
+         "escape": (escape, fe_esc), "loop": (loop, fe_loop)}, d2h_full)
+    for r in rows:
+        r["launches_pipeline"] = (
+            wrappers_pipe[PIPELINE_WRAPPERS[r["name"]]]
+            if r["name"] in PIPELINE_WRAPPERS else counts_pipe[r["name"]])
+    lap("pipeline")
+    _check_gather(frames, gt, device, full, fe_full)
+    lap("gather")
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here", flush=True)

@@ -9,6 +9,7 @@ share, and the device time of this repository's kernels by name.
   python cli/profile_torch.py --compare build/parent --pairs 10
   python cli/profile_torch.py --incremental-grid --pairs 10
   python cli/profile_torch.py --loop-verify-async --pairs 10
+  python cli/profile_torch.py --pipeline-depth 8 --pairs 10
 
 --root names the checkout whose `ndt_slam_tpu_torch` is profiled (the
 log is always read from this one). --compare measures two checkouts in
@@ -22,7 +23,13 @@ the same way (ndt_incremental_grid = 1 against 0, whole runs in turns),
 and then profiles the steady window of each. --loop-verify-async
 measures office_loop with loop closure (full rebuild) the same way,
 the verify resolved a check late (loop_verify_async = 1) against at
-once (0), with each run's back-end times.
+once (0), with each run's back-end times. --pipeline-depth N measures
+the pipelined front end at depth N against the synchronous one (depth
+0) of the --root checkout the same way, on the full rebuild, first with
+loops off and then with loops on, each run after `FrontEnd.warmup`,
+with the pipelined side's rollbacks and replays; then the steady
+window of each depth, loops off, with its device-to-host copies a
+frame.
 
 The busy share is the summed duration of the device events of the
 window (one stream, so they do not overlap) over the wall time of the
@@ -81,10 +88,12 @@ def _activate(tree: dict):
     sys.modules.update(tree)
 
 
-def _compare(sides: dict, pairs: int, frames, card: str) -> dict:
+def _compare(sides: dict, pairs: int, frames, card: str,
+             warmup: bool = False) -> dict:
     """Whole runs of two sides in turns; the first of each pair
     alternates. `sides` maps a name to (modules of a checkout, SlamConfig
-    overrides)."""
+    overrides). With `warmup` each run starts after `FrontEnd.warmup` (the
+    kernel library and the map step's first launches, once a process)."""
     import torch
 
     device = torch.device("cuda", 0)
@@ -96,6 +105,9 @@ def _compare(sides: dict, pairs: int, frames, card: str) -> dict:
         _activate(mods)
         cfg = mods["ndt_slam_tpu_torch.config"].SlamConfig().replace(
             **overrides)
+        if warmup:
+            mods["ndt_slam_tpu_torch.pipeline.frontend"].FrontEnd(
+                cfg, device).warmup()
         fe = mods["ndt_slam_tpu_torch.pipeline.runner"].run_slam(
             frames, cfg, device)
         torch.cuda.synchronize()
@@ -110,6 +122,8 @@ def _compare(sides: dict, pairs: int, frames, card: str) -> dict:
                        t_remake_s=fe.t_remake,
                        loops_accepted=be.loops_accepted,
                        corrections=fe.n_corrections)
+        if hasattr(fe, "n_rollbacks"):
+            out.update(rollbacks=fe.n_rollbacks, replayed=fe.n_replayed)
         return out
 
     for name in names:                                   # warm-up, build
@@ -169,23 +183,37 @@ def _profile(tree: dict, overrides: dict, frames, gt, args, label: str,
             fe.timer.ms.items(), key=lambda kv: -kv[1])},
     }
 
+    # an older checkout has no pipelined front end (and a property)
+    depth = cfg.resolved_pipeline_depth
+    depth = depth("cuda") if callable(depth) else depth
+    Pipelined = getattr(tree.get(
+        "ndt_slam_tpu_torch.pipeline.async_frontend"), "PipelinedFrontEnd",
+        None)
+
     def window(profiled: bool):
-        fe = FrontEnd(cfg, device)
+        # frames in flight are drained at both ends of the window
+        fe = Pipelined(cfg, device) if depth > 0 else FrontEnd(cfg, device)
         for fr in frames[:args.warm]:
             fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+        if depth > 0:
+            fe.drain()
         torch.cuda.synchronize()
         span = frames[args.warm:args.warm + args.window]
-        if not profiled:
-            t0 = time.perf_counter()
+
+        def run():
             for fr in span:
                 fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
+            if depth > 0:
+                fe.drain()
             torch.cuda.synchronize()
+
+        if not profiled:
+            t0 = time.perf_counter()
+            run()
             return time.perf_counter() - t0
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for fr in span:
-                fe.process(fr.scan_xy, fr.odo_pose, sid=fr.stamp)
-            torch.cuda.synchronize()
+            run()
         return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
                 if e.device_type == DeviceType.CUDA]
 
@@ -228,9 +256,14 @@ def main() -> int:
     ap.add_argument("--loop-verify-async", action="store_true",
                     help="measure office_loop with loops, the verify "
                          "resolved a check late against at once, in turns")
+    ap.add_argument("--pipeline-depth", type=int, default=0,
+                    help="measure the pipelined front end at this depth "
+                         "against the synchronous one, loops off and on, "
+                         "in turns, then profile each")
     ap.add_argument("--pairs", type=int, default=10,
                     help="pairs of whole runs for --compare, "
-                         "--incremental-grid and --loop-verify-async")
+                         "--incremental-grid, --loop-verify-async and "
+                         "--pipeline-depth")
     ap.add_argument("--warm", type=int, default=40,
                     help="frames before the window")
     ap.add_argument("--window", type=int, default=50,
@@ -273,6 +306,20 @@ def main() -> int:
         sides = {"async": (tree, {**loop, "loop_verify_async": 1}),
                  "sync": (tree, {**loop, "loop_verify_async": 0})}
         print(json.dumps(_compare(sides, args.pairs, frames, card)))
+        return 0
+    if args.pipeline_depth:
+        d = args.pipeline_depth
+        for loop in (False, True):
+            base = {"ndt_incremental_grid": 0, "loop_enable": loop}
+            sides = {f"depth_{d}": (tree, {**base, "pipeline_depth": d}),
+                     "depth_0": (tree, {**base, "pipeline_depth": 0})}
+            out = _compare(sides, args.pairs, frames, card, warmup=True)
+            out["loop_enable"] = loop
+            print(json.dumps(out), flush=True)
+        for depth in (d, 0):
+            print(json.dumps(_profile(
+                tree, {"ndt_incremental_grid": 0, "pipeline_depth": depth},
+                frames, gt, args, f"{label} (depth {depth})", card)))
         return 0
     print(json.dumps(_profile(tree, {}, frames, gt, args, label, card)))
     return 0

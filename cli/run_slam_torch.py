@@ -23,7 +23,13 @@ both against the ground-truth rows of the processed frames (from
 and fails when there is no CUDA device; pass --device cpu to run the
 plain PyTorch twins instead of the kernels. The incremental moment
 lattice is switched through --config ({"ndt_incremental_grid": 1} or
-0); summary.json says which grid path and which resampler ran.
+0); summary.json says which grid path and which resampler ran. The
+pipelined front end too ({"pipeline_depth": 8}: frames in flight
+before their outputs are fetched in one copy; -1 resolves to
+config.PIPELINE_AUTO_DEPTH_ON_CUDA on cuda and to 0 on the CPU);
+summary.json then holds pipeline_depth, pipeline_rollbacks and
+pipeline_replayed. --profile DIR writes a torch.profiler Chrome trace
+of the frame loop to DIR/trace.json.
 """
 
 from __future__ import annotations
@@ -71,6 +77,9 @@ def main():
                          "at the end, when --checkpoint is given)")
     ap.add_argument("--resume", action="store_true",
                     help="resume from --checkpoint if it exists")
+    ap.add_argument("--profile",
+                    help="write a torch.profiler trace of the frame loop "
+                         "to this directory")
     ap.add_argument("--device", default="cuda",
                     help="torch device to run on (default: cuda)")
     ap.add_argument("-v", "--verbose", action="store_true")
@@ -91,6 +100,7 @@ def main():
     from ndt_slam_tpu_torch.io.simulate import simulate_sequence
     from ndt_slam_tpu_torch.io.tsukuba import read_tsukuba_log
     from ndt_slam_tpu_torch.metrics import ate_rmse
+    from ndt_slam_tpu_torch.pipeline.async_frontend import PipelinedFrontEnd
     from ndt_slam_tpu_torch.pipeline.runner import run_slam
 
     overrides = {}
@@ -134,7 +144,8 @@ def main():
                   metrics_path=os.path.join(args.out, "metrics.jsonl"),
                   verbose=args.verbose, checkpoint_path=args.checkpoint,
                   checkpoint_every=args.checkpoint_every, resume=args.resume,
-                  viz_every=args.viz_every, viz_final=args.viz)
+                  viz_every=args.viz_every, viz_final=args.viz,
+                  profile_dir=args.profile)
     summary = {
         "frames": len(fe.pose_history),
         "device": str(device),
@@ -158,6 +169,12 @@ def main():
             "t_optimize_s": round(fe.backend.t_optimize, 2),
             "t_remake_s": round(fe.t_remake, 2),
             "remake_stats": fe.pcmap.remake_stats,
+        })
+    if isinstance(fe, PipelinedFrontEnd):
+        summary.update({
+            "pipeline_depth": fe.depth,
+            "pipeline_rollbacks": fe.n_rollbacks,
+            "pipeline_replayed": fe.n_replayed,
         })
     if fe.n_grid_fallbacks:
         # the JAX CLI's key, written only when a window escaped

@@ -9,9 +9,8 @@ device of the tensors the caller passes (CUDA tensors go to the
 kernels of `ndt/kernels.py`, CPU tensors to their plain twins), and a
 setting whose "auto" value depends on the device is resolved by the
 caller that knows it (`resolved_ndt_incremental_grid(device_type)`,
-`resolved_loop_verify_async(device_type)`). The pipelined front end is
-not ported yet: its depth resolves to 0 and `FrontEnd` refuses a config
-that forces it on.
+`resolved_loop_verify_async(device_type)`,
+`resolved_pipeline_depth(device_type)`).
 """
 
 from __future__ import annotations
@@ -29,6 +28,19 @@ from typing import Any, Mapping
 # to the full rebuild (PERF.md has the runs). The JAX package resolves
 # its -1 to on for its accelerator.
 LATTICE_AUTO_ON_CUDA = False
+
+# What pipeline_depth = -1 means on a CUDA device: frames in flight
+# before the pipelined front end fetches their small outputs in one
+# copy. 0 (synchronous): on an H100 the frame's one fetch is about 1 %
+# of the frame and the solver's done-flag polls sync the host inside
+# every frame anyway, so chunking the fetch has little to hide. In turns
+# in one process, over two calls, depth 8 won 12 of 20 pairs of
+# office_loop runs without loops (3 of 10, then 9 of 10: no clear win)
+# and 3 of 20 with loops, where the frames replayed after each
+# correction cost more than the fetches saved (PERF.md has the runs).
+# The JAX package resolves its -1 to 8 on its accelerator, where the
+# fetch dominated the frame.
+PIPELINE_AUTO_DEPTH_ON_CUDA = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,8 +63,10 @@ class SlamConfig:
     ndt_outlier_ratio: float = 0.55
     ndt_min_points_per_cell: int = 6
     ndt_neighborhood: int = 1
-    # "auto", "compact" and "pallas" all name the one engine the port
-    # has: the compact table (see resolved_ndt_engine).
+    # "auto", "compact" and "pallas" name the compact table (the CUDA
+    # kernels); "gather" the dense-window neighbour gather in tensor
+    # code (ndt/score.py, the sequential path only; see
+    # resolved_ndt_engine).
     ndt_engine: str = "auto"
     ndt_max_active_cells: int = 2048
     source_leaf_size: float = 0.05
@@ -91,7 +105,10 @@ class SlamConfig:
     ndt_incremental_grid: int = -1
     # Lattice side in cells; -1 = auto (see resolved_grid_mom_cells).
     grid_mom_cells: int = -1
-    # Pipelined host sync: not ported yet (-1 and 0 mean synchronous).
+    # Pipelined host sync: frames in flight before the host fetches
+    # their small outputs in one copy (pipeline/async_frontend.py).
+    # 0 = synchronous; -1 = auto (see resolved_pipeline_depth). The
+    # trajectory is the same bit for bit either way.
     pipeline_depth: int = -1
 
     # ---- numerics ----
@@ -127,20 +144,28 @@ class SlamConfig:
     # Resolved settings -------------------------------------------------
     @property
     def resolved_ndt_engine(self) -> str:
-        """The engine actually run: always the compact table, through
-        the CUDA kernels for CUDA tensors and through their plain twins
-        for CPU tensors. The dense-window gather engine is not ported."""
+        """The engine actually run: "compact" (the compact table,
+        through the CUDA kernels for CUDA tensors and their plain twins
+        for CPU tensors) for "auto", "compact" and "pallas"; "gather"
+        (the dense-window neighbour gather of ndt/score.py, tensor code
+        on either device) for "gather"."""
+        if self.ndt_engine == "gather":
+            return "gather"
         if self.ndt_engine not in ("auto", "compact", "pallas"):
             raise ValueError(
                 f"ndt_engine={self.ndt_engine!r} is not available in the "
-                "PyTorch port (only the compact engine is)"
+                "PyTorch port (compact and gather are)"
             )
         return "compact"
 
-    @property
-    def resolved_pipeline_depth(self) -> int:
-        """Host-sync chunk depth: the port's front end is synchronous."""
-        return 0
+    def resolved_pipeline_depth(self, device_type: str) -> int:
+        """Frames in flight of the pipelined front end on a device of
+        `device_type` ("cuda", "cpu"); 0 runs the synchronous front
+        end. >= 0 forces; -1 is PIPELINE_AUTO_DEPTH_ON_CUDA on "cuda"
+        and 0 elsewhere, as in the JAX package off its accelerator."""
+        if self.pipeline_depth >= 0:
+            return self.pipeline_depth
+        return PIPELINE_AUTO_DEPTH_ON_CUDA if device_type == "cuda" else 0
 
     def resolved_ndt_incremental_grid(self, device_type: str) -> bool:
         """Whether the front end on a device of `device_type` ("cuda",

@@ -28,6 +28,7 @@ from ndt_slam_tpu_torch.ndt.compact import (
     CompactGrid, cell_slot_of_table, table_rows,
 )
 from ndt_slam_tpu_torch.ndt.grid import NDTGrid
+from ndt_slam_tpu_torch.pipeline.async_frontend import PipelinedFrontEnd
 from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
 
 _BACKEND_PREFIXES = ("be_", "kf_")
@@ -94,7 +95,8 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
                         ) -> FrontEnd:
     """A FrontEnd restored from checkpoint fields: `arrays` holds the
     `.npz` arrays, `meta` the JSON manifest. Without `cfg` the
-    manifest's config is taken. A saved moment lattice is restored as it
+    manifest's config is taken; a `PipelinedFrontEnd` when its depth
+    resolves above 0 on `device`. A saved moment lattice is restored as it
     is (a rebuild would sum in another order); one of another size than
     `cfg` gives is left out, and the map rebuilds it on first use.
 
@@ -110,7 +112,10 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
             "checkpoint holds loop-closure backend state "
             f"({backend or 'manifest'}), but the config has loop_enable off"
         )
-    fe = FrontEnd(cfg, device)
+    if cfg.resolved_pipeline_depth(device.type) > 0:
+        fe = PipelinedFrontEnd(cfg, device)
+    else:
+        fe = FrontEnd(cfg, device)
     fe.cnt = int(meta["cnt"])
     fe.metrics = list(meta["metrics"])
     if meta["has_prev_odo"]:

@@ -49,7 +49,7 @@ from ndt_slam_tpu_torch.ndt.grid import build_grid
 from ndt_slam_tpu_torch.ndt.icp import icp_refine
 from ndt_slam_tpu_torch.ndt.kernels import nn_sq_dists_batched
 from ndt_slam_tpu_torch.ndt.score import gauss_constants
-from ndt_slam_tpu_torch.ndt.solve import NDTResult, align
+from ndt_slam_tpu_torch.ndt.solve import GATHER_ROWS_TODO, NDTResult, align
 
 
 class LoopVerifyOut(NamedTuple):
@@ -84,6 +84,8 @@ def verify_candidates(cfg: SlamConfig, src_xy, src_mask, tgt_xy, tgt_mask,
     keyframe scans `tgt_xy` [B,T,2] / `tgt_mask` [B,T] (each in its own
     frame) from `init_rel_rad` [B,3]. Runs on the device of the
     tensors: the CUDA kernels on the card, their twins on the CPU."""
+    if cfg.resolved_ndt_engine == "gather":
+        raise NotImplementedError(GATHER_ROWS_TODO)
     dev = src_xy.device
     b = tgt_xy.shape[0]
     rows = torch.arange(b, dtype=torch.int32, device=dev)

@@ -15,6 +15,11 @@ The host reads the flag only every `DONE_POLL` iterations (one sync)
 to stop early; between two reads at most DONE_POLL-1 iterations run
 masked after convergence.
 
+The engine follows the grid's type, as in the JAX package: a
+`CompactGrid` (or `GridStack`) takes the compact table's CUDA kernels
+(their plain twins for CPU tensors), an `NDTGrid` the dense-window
+gather engine of `ndt/score.py` (tensor code, one pose only).
+
 A row axis stands in for the JAX package's `vmap` of `align` (the
 loop-closure verifier's coarse starts and candidates): R poses [R,3],
 row r against grid `grid_index[r]` of a `GridStack`. `done` and the
@@ -35,11 +40,17 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ndt_slam_tpu_torch.ndt import score as gather
 from ndt_slam_tpu_torch.ndt.compact import CompactGrid, GridStack
+from ndt_slam_tpu_torch.ndt.grid import NDTGrid
 from ndt_slam_tpu_torch.ndt.kernels import (
     ndt_score_grad_hess, ndt_score_grad_hess_grids, ndt_scores,
     ndt_scores_grids,
 )
+
+# what the gather engine's refusals say: where its row axis is queued
+GATHER_ROWS_TODO = ("the gather engine has no row axis in the port yet "
+                    "(ROADMAP.md queue 1, item 14)")
 
 # Candidate step-length scales evaluated in parallel each iteration.
 _LS_SCALES = np.array([1.0, 0.5, 0.25, 0.1, 0.04, 0.015], dtype=np.float32)
@@ -127,13 +138,15 @@ def _clamp_norm(v, step_size: float):
     return v * (torch.clamp(nrm, max=step_size) / torch.clamp(nrm, min=1e-12))
 
 
-def align(init_pose_rad, src_xy, src_mask, grid: CompactGrid | GridStack,
-          d1: float, d2: float, max_iterations: int = 35,
-          step_size: float = 0.1, trans_eps: float = 0.01, radius: int = 1,
+def align(init_pose_rad, src_xy, src_mask,
+          grid: CompactGrid | GridStack | NDTGrid, d1: float, d2: float,
+          max_iterations: int = 35, step_size: float = 0.1,
+          trans_eps: float = 0.01, radius: int = 1,
           grid_index=None) -> NDTResult:
-    """Newton NDT solve of `src` against the compact table `grid`: one
-    pose [3] against a `CompactGrid`, or R rows [R,3], row r against
-    grid `grid_index[r]` (int32 [R]) of a `GridStack`."""
+    """Newton NDT solve of `src` against `grid`: one pose [3] against a
+    `CompactGrid` (the kernels) or an `NDTGrid` (the gather engine), or
+    R rows [R,3], row r against grid `grid_index[r]` (int32 [R]) of a
+    `GridStack`."""
     dev = src_xy.device
     scales = _ls_scales(dev)
     eye = torch.eye(3, dtype=torch.float32, device=dev)
@@ -141,7 +154,18 @@ def align(init_pose_rad, src_xy, src_mask, grid: CompactGrid | GridStack,
     lead = pose.shape[:-1]
     it = torch.zeros(lead, dtype=torch.int32, device=dev)
     done = torch.zeros(lead, dtype=torch.bool, device=dev)
-    if lead:
+    if isinstance(grid, NDTGrid):
+        if lead:
+            raise NotImplementedError(GATHER_ROWS_TODO)
+
+        def sgh(p):
+            return gather.ndt_score_grad_hess(p, src_xy, src_mask, grid, d1,
+                                              d2, radius)
+
+        def scores(c):
+            return gather.ndt_negative_score(c, src_xy, src_mask, grid, d1,
+                                             d2, radius)
+    elif lead:
         if not isinstance(grid, GridStack) or grid_index is None:
             raise ValueError("align over rows takes a GridStack and a grid "
                              "index per row")

@@ -44,6 +44,7 @@ import torch
 from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer
 from ndt_slam_tpu_torch.mapping.pointcloud_map import _add_scan_and_target
+from ndt_slam_tpu_torch.ndt.solve import GATHER_ROWS_TODO
 from ndt_slam_tpu_torch.pipeline.frontend import (
     FrontEnd, StageTimer, _registration_step,
 )
@@ -78,6 +79,8 @@ class BatchFrontEnd:
                  frontends: Optional[Sequence[FrontEnd]] = None):
         """`frontends`: n_seq FrontEnds on `device` to continue (loaded
         from checkpoints, say) instead of new ones."""
+        if cfg.resolved_ndt_engine == "gather":
+            raise NotImplementedError(GATHER_ROWS_TODO)
         self.cfg = cfg
         self.device = torch.device(device)
         self.frontends: List[FrontEnd] = (

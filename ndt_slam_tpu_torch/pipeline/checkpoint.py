@@ -12,7 +12,7 @@ because a rebuild sums in another order. The back end's graph (`be_*`:
 node poses, odometry and loop edges), its keyframes (`kf_*`: poses and
 scans) and its counters (the manifest's `backend` entry) are saved
 after a verification still in flight is resolved into edges, as the JAX
-package does.
+package does, and a pipelined front end is drained before it is saved.
 """
 
 from __future__ import annotations
@@ -48,7 +48,11 @@ def _fetch(tensors: dict) -> dict:
 
 def save_checkpoint(fe: FrontEnd, path: str) -> None:
     """Write the complete front-end state to `path` (.npz), through
-    `path + ".tmp.npz"` and an atomic rename."""
+    `path + ".tmp.npz"` and an atomic rename. A pipelined front end
+    with frames in flight is drained first (their records are then in
+    `fe.metrics` only), so that the file holds the resolved state."""
+    if getattr(fe, "_queue", None):
+        fe.drain()
     pm = fe.pcmap
     be = fe.backend
     if be is not None:
@@ -175,7 +179,9 @@ def load_checkpoint(path: str, device, cfg: Optional[SlamConfig] = None,
     anchors the resume-skip count. `end_frame` and `draw_skip` only
     steer the outer loop and may differ; keys only one side knows
     (another build's manifest) are not compared. Pass strict=False to
-    override knowingly."""
+    override knowingly. The front end is a `PipelinedFrontEnd` when
+    the config's depth resolves above 0 on `device`: a drained
+    pipelined front end holds exactly a FrontEnd's state."""
     arrays, meta = convert.read_checkpoint(path)
     if cfg is not None and strict:
         stored = convert.stored_config(meta)

@@ -22,7 +22,10 @@ rewrites the pose history and the map (`_apply_correction`). The pose,
 covariance and odometry carries stay on the device between frames; the
 per-frame small outputs come back to the host in one device-to-host
 copy (a second one only for a frame whose window escaped the lattice
-and is redone through the full rebuild).
+and is redone through the full rebuild). The pipelined front end
+(`pipeline/async_frontend.py`) fetches them a chunk of frames at a
+time and shares the record (`_build_rec`) and the back-end step
+(`_backend_hook`) with this path.
 
 `_registration_step` also takes a leading batch dimension: the lockstep
 batch runner (`pipeline/batch_runner.py`) registers B sequences a tick
@@ -60,7 +63,7 @@ from ndt_slam_tpu_torch.ndt.grid import (
     build_grid, lattice_anchor, moments_abs, window_grid_from_lattice,
 )
 from ndt_slam_tpu_torch.ndt.score import gauss_constants
-from ndt_slam_tpu_torch.ndt.solve import align
+from ndt_slam_tpu_torch.ndt.solve import GATHER_ROWS_TODO, align
 from ndt_slam_tpu_torch.pre.resample import resample_points_np
 
 
@@ -222,16 +225,22 @@ def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
     mark("grid")
     rows = scan_xy.dim() == 3
 
-    # --- source downsample, compact table
+    # --- source downsample, compact table (the gather engine registers
+    # against the window grid itself)
     src = voxel_filter(PointBuffer(scan_xy, scan_mask), cfg.source_leaf_size)
     mark("source_filter")
+    gather = cfg.resolved_ndt_engine == "gather"
+    grid_index = None
     if rows:
+        if gather:
+            raise NotImplementedError(GATHER_ROWS_TODO)
         cgrid = compact_grids(grid, cfg.ndt_max_active_cells)
         grid_index = torch.arange(scan_xy.shape[0], dtype=torch.int32,
                                   device=scan_xy.device)
+    elif gather:
+        cgrid = grid
     else:
         cgrid = compact_grid(grid, cfg.ndt_max_active_cells)
-        grid_index = None
     mark("compact")
     d1, d2 = gauss_constants(cfg.ndt_resolution, cfg.ndt_outlier_ratio)
 
@@ -279,9 +288,6 @@ class FrontEnd:
     ScanMatcher, on the device `device`."""
 
     def __init__(self, cfg: SlamConfig, device):
-        if cfg.pipeline_depth > 0:
-            raise NotImplementedError(
-                "the pipelined front end is not ported yet")
         cfg.resolved_ndt_engine  # raises for an engine the port lacks
         self.cfg = cfg
         self.device = torch.device(device)
@@ -328,6 +334,60 @@ class FrontEnd:
         if cfg.loop_enable:
             self.backend = GraphBackend(cfg, self.device)
             self.backend.mark = self.timer.mark
+
+    def warmup(self):
+        """Build the kernel library (on a CUDA device) and run every
+        map-step variant the run will meet once on empty buffers: each
+        flag set of `_add_scan_target_mom` with and without a lattice,
+        the from-scratch lattice, the close path's `_concat` and voxel
+        filter, and the standalone `_append` and interior pass of a new
+        submap's seeding; so that a timed run pays no first-launch
+        cost. The map is left as it was; the kernels' launches count."""
+        from ndt_slam_tpu_torch.mapping.dynamic import process_interior_scan
+        from ndt_slam_tpu_torch.mapping.pointcloud_map import (
+            _add_scan_target_mom, _append, _concat, _rebuild_mom,
+        )
+        from ndt_slam_tpu_torch.ndt import kernels
+
+        cfg, dev = self.cfg, self.device
+        if dev.type == "cuda":
+            kernels._load()
+        scan = PointBuffer.empty(cfg.max_scan_points, dev)
+        proc = PointBuffer.empty(cfg.max_submap_points, dev)
+        none = PointBuffer.empty(1, dev)
+        zero = torch.zeros((), dtype=torch.int32, device=dev)
+        B = cfg.resolved_grid_mom_cells
+        mom = torch.zeros((B * B, 6), dtype=torch.float32, device=dev)
+        anchor = torch.zeros((2,), dtype=torch.int32, device=dev)
+        common = dict(
+            filtered=cfg.ndt_target_filtered, cap_sub=cfg.max_submap_points,
+            cap_local=cfg.max_local_map_points, resol=cfg.diff_resol,
+            thre=cfg.thre_neighbor, leaf=cfg.submap_leaf_size,
+            mom_cells=B, grid_res=cfg.ndt_resolution,
+        )
+        variants = ([(True, False, True), (False, False, True),
+                     (False, True, True)] if cfg.remove_moving
+                    else [(True, False, False)])
+        for has_prev in (False, True):
+            prev = proc if has_prev else none
+            for ap, di, inc in variants:
+                for m, a in ((None, None), (mom, anchor)):
+                    _add_scan_target_mom(
+                        proc, zero, scan, scan, scan, prev, m, a,
+                        append_scan=ap, do_interior=di, include_newest=inc,
+                        has_prev=has_prev, **common)
+            _rebuild_mom(prev, proc, anchor, mom_cells=B,
+                         grid_res=cfg.ndt_resolution, has_prev=has_prev)
+        c = _concat(proc, scan, cfg.max_submap_points)
+        voxel_filter(c, cfg.submap_leaf_size)
+        _concat(proc, c, cfg.max_local_map_points)
+        _concat(c, none, cfg.max_local_map_points)
+        _append(proc, zero, scan)
+        if cfg.remove_moving:
+            process_interior_scan(scan, scan, scan, cfg.diff_resol,
+                                  cfg.thre_neighbor)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
 
     def process(self, scan_xy_local: np.ndarray, odo_pose_deg: np.ndarray,
                 sid: Optional[int] = None) -> dict:
@@ -455,27 +515,36 @@ class FrontEnd:
         self.prev_odo = odo
         self.cnt += 1
         self.timer.mark("map")
-        rec = {
+        rec = self._build_rec(sid, small)
+        self._record(fused, cov, rec)
+        self._backend_hook(sid, fused, cov, scan, rec)
+        return rec
+
+    @staticmethod
+    def _build_rec(sid: int, small: np.ndarray) -> dict:
+        """A frame's record from its fetched row `small` ([24], the
+        layout of `FrameResult.small`); the synchronous and the
+        pipelined paths share it."""
+        return {
             "sid": sid,
             "cost": float(small[12]),
             "successful": bool(small[13] > 0.5),
             "est_pose": small[17:20].tolist(),
-            "fused_pose": fused.tolist(),
+            "fused_pose": small[0:3].tolist(),
             "iterations": int(small[14]),
             "matched": float(small[15]),
             "error_pose": small[20:23].tolist(),
             "trans_probability": float(small[16]),
         }
-        self._record(fused, cov, rec)
-        self._backend_hook(sid, fused, cov, scan, rec)
-        return rec
 
     def _backend_hook(self, sid: int, fused, cov, scan: PointBuffer,
-                      rec: dict):
+                      rec: dict) -> bool:
         """The back end's step for one frame: add_frame, the check every
-        loop_check_skip frames, and the correction it returns."""
+        loop_check_skip frames, and the correction it returns. True when
+        a correction rewrote the map (the pipelined path then replays the
+        frames it has in flight)."""
         if self.backend is None:
-            return
+            return False
         self.backend.add_frame(sid, fused, cov, scan)
         if (self.cnt - 1) % max(1, self.cfg.loop_check_skip) == 0:
             t0 = time.perf_counter()
@@ -484,8 +553,9 @@ class FrontEnd:
             if corrected is not None:
                 self._correct(corrected)
                 rec["loop_closed"] = True
-                return
+                return True
         self.timer.mark("backend")
+        return False
 
     def _correct(self, corrected_deg: np.ndarray):
         """Apply a correction, timed and counted."""

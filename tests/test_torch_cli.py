@@ -16,7 +16,12 @@ shape of chip_smoke.py's main-path phases, on the CPU.
 - chip_smoke.py runs `[main]` over all 500 frames of the default path
   and `[determinism]` on both grid paths, and `[loop]` over all 500
   frames with loops on, `[pgo]` and `[determinism]` / `[resume]` with
-  loops on (read from its source: the script needs a card).
+  loops on, `[pipeline]` held bit for bit to the synchronous runs and
+  `[gather]` within its bounds (read from its source: the script needs
+  a card).
+- `resolved_pipeline_depth` is 0 on the CPU and the module constant on
+  CUDA unless forced; with a depth, summary.json holds the JAX CLI's
+  pipeline keys, and `--profile` writes a Chrome trace.
 """
 
 import ast
@@ -187,3 +192,90 @@ def test_chip_smoke_runs_the_loop_phases():
     assert [c for c in calls if c.func.id == "_check_loop_determinism"]
     assert [c for c in _calls("_loop_closure_child")
             if c.func.id == "_check_pgo"]
+
+
+def test_resolved_pipeline_depth():
+    from ndt_slam_tpu_torch.config import PIPELINE_AUTO_DEPTH_ON_CUDA
+
+    cfg = SlamConfig()
+    assert cfg.pipeline_depth == -1
+    assert cfg.resolved_pipeline_depth("cpu") == 0
+    assert cfg.resolved_pipeline_depth("cuda") == PIPELINE_AUTO_DEPTH_ON_CUDA
+    for forced in (0, 3, 8):
+        c = cfg.replace(pipeline_depth=forced)
+        assert c.resolved_pipeline_depth("cpu") == forced
+        assert c.resolved_pipeline_depth("cuda") == forced
+    # the JAX package resolves -1 to 0 off its accelerator as well
+    assert JSlamConfig().resolved_pipeline_depth == 0
+
+
+def _jax_pipeline_keys():
+    """The keys cli/run_slam.py adds to summary.json for a pipelined run."""
+    tree = ast.parse(open(os.path.join(ROOT, "cli", "run_slam.py")).read())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Call) and getattr(node.func, "attr", "") \
+                == "update" and node.args \
+                and isinstance(node.args[0], ast.Dict):
+            keys = {ast.literal_eval(k) for k in node.args[0].keys}
+            if "pipeline_depth" in keys:
+                return keys
+    raise AssertionError("no pipeline summary in cli/run_slam.py")
+
+
+def test_pipelined_summary_has_the_jax_cli_keys_and_profile(
+        tmp_path, monkeypatch, capsys):
+    summary = _run_cli(tmp_path, monkeypatch, "pipe",
+                       {"ndt_max_active_cells": 256, "pipeline_depth": 3},
+                       "--simulate", "6", "--profile",
+                       str(tmp_path / "trace"))
+    capsys.readouterr()
+    keys = _jax_pipeline_keys()
+    assert keys == {"pipeline_depth", "pipeline_rollbacks",
+                    "pipeline_replayed"}
+    assert keys <= set(summary) and summary["pipeline_depth"] == 3
+    assert summary["frames"] == 6
+    trace = json.loads((tmp_path / "trace" / "trace.json").read_text())
+    assert trace["traceEvents"]
+    records = (tmp_path / "pipe" / "metrics.jsonl").read_text().splitlines()
+    assert [json.loads(r)["sid"] for r in records] == list(range(6))
+
+
+def _source(fn_name):
+    path = os.path.join(ROOT, "chip_smoke.py")
+    src = open(path).read()
+    fn = next(n for n in ast.parse(src).body
+              if isinstance(n, ast.FunctionDef) and n.name == fn_name)
+    return ast.get_source_segment(src, fn)
+
+
+def test_chip_smoke_runs_the_pipeline_and_gather_phases():
+    """[pipeline] at depth 8 holds each run bit for bit to its synchronous
+    run of the same process ([main] on all 500 frames through
+    `_run_main_path`, [main-inc], the escape run, [loop] with its loops
+    and corrections, a resume from frames in flight); [gather] runs 150
+    frames on the card and 15 card against CPU."""
+    calls = _calls("main")
+    pipe = [c for c in calls if c.func.id == "_check_pipeline"]
+    assert len(pipe) == 1
+    sync = pipe[0].args[3]
+    assert isinstance(sync, ast.Dict)
+    assert {ast.literal_eval(k) for k in sync.keys} == {
+        "main", "main-inc", "escape", "loop"}
+    assert [v.elts[0].id for v in sync.values] == [
+        "full", "inc", "escape", "loop"]
+    assert [c for c in calls if c.func.id == "_check_gather"]
+    inner = _calls("_check_pipeline")
+    assert [ast.literal_eval(c.args[0]) for c in inner
+            if c.func.id == "_run_main_path"] == ["pipeline"]
+    src = _source("_check_pipeline")
+    assert src.count("_same_run(") == 4
+    for check in ("fe_l.n_replayed >= 1", "fe_i.n_rollbacks > 0",
+                  "be.loops_accepted == be_s.loops_accepted",
+                  "fe_l.n_corrections == fe_loop.n_corrections",
+                  "in_flight > 0", ".tobytes()"):
+        assert check in src, check
+    whole = open(os.path.join(ROOT, "chip_smoke.py")).read()
+    assert "PIPE_DEPTH = 8 " in whole and "GATHER_FRAMES = 150 " in whole
+    gather = _source("_check_gather")
+    assert 'ndt_engine="gather"' in gather
+    assert "dxy <= 0.05 and dth <= 0.3" in gather
