@@ -102,7 +102,24 @@ Phases, one line each (any failure exits non-zero):
  10. [gather] the dense-window gather engine: 150 office_loop frames at
      the default config on the card, ATE and accept rate beside the
      compact engine's [main] over the same frames, and 15 frames at the
-     small capacities, card against CPU within 0.05 m and 0.3 deg.
+     small capacities, card against CPU within 0.05 m and 0.3 deg; the
+     verifier with the gather engine on [verify]'s inputs, card against
+     CPU (accepted equal, within 0.05 m and 0.3 deg); 100 lockstep ticks
+     at B = 4 ([batch]'s rows) with the gather engine against the
+     sequential gather runs of the same frames (ATE within 5 cm of the
+     sequential run's, accept >= 0.95, the largest pose gap printed);
+ 11. [dist] the multi-rank runners on torch.distributed: (a)
+     `run_slam_distributed` at world size 1 on nccl in this process,
+     all 500 office_loop frames at the default config, loops off, ATE
+     and accept within [main]'s bounds, its largest pose gap to [main];
+     (b) two ranks sharing the card over gloo (spawned processes),
+     DIST_FRAMES frames: both ranks' trajectories bitwise equal, their
+     gap to [main]'s first DIST_FRAMES frames, every kernel wrapper's
+     launches and the host copies gloo needs on each rank; (c) in those
+     two ranks `make_sharded_verify` on [verify]'s inputs against the
+     one-device verify (accepted equal) and `make_sharded_optimize` on
+     [loop]'s final graph against `optimize_pcg` (5e-4 m). Launch counts
+     are set to 0 just before each run and read just after.
 The last line is the JSON result; the kernels' JSON line and the
 card's name and power limit come just before it.
 """
@@ -156,6 +173,9 @@ PIPELINE_WRAPPERS = {**VARIANT_WRAPPERS,
                      "fitness_batched": "fitness_score_batched"}
 PIPE_DEPTH = 8             # frames in flight of the [pipeline] runs
 GATHER_FRAMES = 150        # office_loop frames of the [gather] run
+GATHER_TICKS = 100         # lockstep ticks of the [gather] batch run
+DIST_FRAMES = 150          # office_loop frames of the [dist] two-rank run
+DIST_PGO_TOL_M = 5e-4      # [dist] sharded PCG against optimize_pcg, m
 
 
 def _require(ok, what):
@@ -2132,7 +2152,7 @@ def _check_pipeline(frames, gt, device, sync, d2h_sync):
     return counts, wrappers
 
 
-def _check_gather(frames, gt, device, full, fe_full):
+def _check_gather(frames, gt, device, full, fe_full, vin):
     """[gather] the dense-window gather engine (tensor code, no kernel of
     its own): GATHER_FRAMES office_loop frames at the default config on
     the card, held to suite.json's office_default bound and the accept
@@ -2184,6 +2204,198 @@ def _check_gather(frames, gt, device, full, fe_full):
           f"{dth:.3g} deg", flush=True)
     _require(on_card.shape == (15, 3) and dxy <= 0.05 and dth <= 0.3,
              "[gather] card and CPU agree on the first 15 frames")
+    _check_gather_rows(full.replace(ndt_engine="gather"), vin, device)
+
+
+def _check_gather_rows(gcfg, vin, device):
+    """[gather]'s row axis: the verifier with the gather engine on
+    [verify]'s inputs, card against the CPU (accepted equal, relative
+    poses within 0.05 m and 0.3 deg), and GATHER_TICKS lockstep ticks at
+    B = 4 ([batch]'s rows) against the sequential gather runs of the
+    same frames: each row's ATE within BATCH_ATE_SLACK of its sequential
+    run's and its accept rate >= ACCEPT_BOUND, the largest pose gap
+    printed. Launch counts set to 0 just before each and read after."""
+    import torch
+    from ndt_slam_tpu_torch.graph import verify_candidates
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.pipeline.batch_runner import run_slam_batch
+    from ndt_slam_tpu_torch.pipeline.runner import run_slam
+
+    args = (vin["src"].xy, vin["src"].mask, vin["tgt_xy"], vin["tgt_mask"],
+            vin["init"])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = verify_candidates(gcfg, *args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    t0 = time.perf_counter()
+    cpu = verify_candidates(gcfg, *(a.cpu() for a in args))
+    cpu_s = time.perf_counter() - t0
+    dxy, dth = _pose_gap(out.rel_pose_rad, cpu.rel_pose_rad)
+    print(f"[gather] verify with the gather engine, frame {vin['cur']} "
+          f"against keyframes {vin['sids']}: accepted "
+          f"{out.accepted.tolist()} (CPU {cpu.accepted.tolist()}), card vs "
+          f"CPU max {dxy:.3g} m, {dth:.3g} deg; {wall * 1e3:.1f} ms on the "
+          f"card, {cpu_s:.2f} s on the CPU; launches {counts}", flush=True)
+    _require(torch.equal(out.accepted.cpu(), cpu.accepted)
+             and dxy <= 0.05 and dth <= 0.3,
+             "[gather] the gather verify agrees card and CPU")
+    _require(counts["sgh"] == counts["score_many"] == 0 < counts["nn"],
+             "[gather] the gather verify runs without the window kernels")
+
+    names, seqs, gts = _batch_inputs()
+    head = [s[:GATHER_TICKS] for s in seqs]
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    fes = run_slam_batch(head, gcfg, device)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wrappers = kernels.wrapper_launch_counts()
+    print(f"[gather] lockstep, {len(head)} rows x {GATHER_TICKS} ticks in "
+          f"{wall:.2f} s; launches by wrapper {wrappers}", flush=True)
+    _require(wrappers["fitness_score_batched"] > 0
+             and kernels.launch_counts()["sgh"] == 0,
+             "[gather] the lockstep run solves on the gather engine and "
+             "scores fitness with the batched kernel")
+    for name, seq, fe, gt in zip(names, head, fes, gts):
+        n = len(seq)
+        ref = run_slam(seq, gcfg, device)
+        poses = fe.get_poses()
+        _require(poses.shape == (n, 3) and np.isfinite(poses).all(),
+                 f"[gather] lockstep {name}: {n} finite poses")
+        ate = ate_rmse(poses, gt[:n])
+        ate_seq = ate_rmse(ref.get_poses(), gt[:n])
+        accept = float(np.mean([bool(m["successful"]) for m in fe.metrics]))
+        gap, gap_deg = _trajectory_gap(poses, ref.get_poses())
+        print(f"[gather] lockstep {name}: ATE {ate:.4f} m (sequential "
+              f"gather run {ate_seq:.4f} m), accept {accept:.4f}; largest "
+              f"pose gap to the sequential run {gap:.4g} m, {gap_deg:.4g} "
+              f"deg", flush=True)
+        _require(ate <= ate_seq + BATCH_ATE_SLACK and accept >= ACCEPT_BOUND,
+                 f"[gather] lockstep {name}: ATE {ate} <= {ate_seq} + "
+                 f"{BATCH_ATE_SLACK} m, accept {accept} >= {ACCEPT_BOUND}")
+
+
+def _check_dist(frames, gt, full, fe_full, vin, office, device):
+    """[dist] (see the module docstring): (a) world size 1 on nccl in
+    this process, (b) and (c) in two spawned ranks sharing the card over
+    gloo. Returns (launches of (a) by wrapper, each rank's launches of
+    (b) by wrapper)."""
+    import torch
+    from ndt_slam_tpu_torch.graph.pose_graph import optimize_pcg
+    from ndt_slam_tpu_torch.graph import verify_candidates, pack_verify_out
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.parallel import dist as pdist
+    from ndt_slam_tpu_torch.parallel import jobs
+    from ndt_slam_tpu_torch.pipeline.dist_runner import run_slam_distributed
+
+    main = fe_full.get_poses()
+    # (a) one rank on nccl
+    with tempfile.TemporaryDirectory() as tmp:
+        rt = pdist.initialize(init_file=os.path.join(tmp, "pg"),
+                              world_size=1, rank=0, backend="nccl",
+                              device=device)
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            fe = run_slam_distributed(frames, full, device)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts_a = kernels.launch_counts()
+            wrappers_a = kernels.wrapper_launch_counts()
+        finally:
+            pdist.shutdown()
+    poses = fe.get_poses()
+    n = len(frames)
+    _require(poses.shape == (n, 3) and np.isfinite(poses).all(),
+             f"[dist] (a) {n} finite poses")
+    ate = ate_rmse(poses, gt[:n])
+    acc = float(np.mean([bool(m.get("successful")) for m in fe.metrics]))
+    gap, gap_deg = _trajectory_gap(poses, main)
+    print(f"[dist] (a) world size 1, backend {rt.backend}, {n} frames in "
+          f"{wall:.2f} s = {n / wall:.2f} frames/s ([main] "
+          f"{_frames_per_s(fe_full):.2f}): ATE {ate:.4f} m, accept "
+          f"{acc:.4f}; largest pose gap to [main] {gap:.4g} m, "
+          f"{gap_deg:.4g} deg; launches {counts_a} ({_nvidia_smi()})",
+          flush=True)
+    _require(rt.backend == "nccl", "[dist] (a) runs on nccl")
+    _require(ate < ATE_BOUND and acc >= ACCEPT_BOUND,
+             f"[dist] (a) ATE {ate} < {ATE_BOUND} m, accept {acc} >= "
+             f"{ACCEPT_BOUND}")
+    _require(min(counts_a.values()) > 0, "[dist] (a) every kernel launched")
+
+    # (b) and (c): two ranks sharing the card
+    ver = {"src_xy": vin["src"].xy, "src_mask": vin["src"].mask,
+           "tgt_xy": vin["tgt_xy"], "tgt_mask": vin["tgt_mask"],
+           "init": vin["init"]}
+    ver = {k: v.cpu().numpy() for k, v in ver.items()}
+    graph = dict(zip(("poses", "node_mask", "idx_i", "idx_j", "z", "omega",
+                      "edge_mask"), (t.numpy() for t in office)))
+    t0 = time.perf_counter()
+    ranks = pdist.spawn(jobs.run, 2, [
+        ("slam", (full, frames[:DIST_FRAMES], "cuda"), {}),
+        ("verify", (full, ver, "cuda"), {}),
+        ("optimize", (graph, "cuda"), {}),
+    ], backend="gloo", device="cuda")
+    spawn_s = time.perf_counter() - t0
+    (b0, v0, (o0, _)), (b1, v1, (o1, _)) = ranks
+    m = DIST_FRAMES
+    gap, gap_deg = _trajectory_gap(b0["poses"], main[:m])
+    for r, b in enumerate((b0, b1)):
+        print(f"[dist] (b) rank {r} of 2, gloo on one card: {m} frames in "
+              f"{b['seconds']:.2f} s = {m / b['seconds']:.2f} frames/s; "
+              f"launches by wrapper {b['wrappers']}; host copies "
+              f"{b['copies']}", flush=True)
+    print(f"[dist] (b) both ranks' trajectories bitwise equal: "
+          f"{b0['poses'].tobytes() == b1['poses'].tobytes()}; largest pose "
+          f"gap to [main]'s first {m} frames {gap:.4g} m, {gap_deg:.4g} deg; "
+          f"the two ranks took {spawn_s:.1f} s from spawn to join",
+          flush=True)
+    _require(b0["poses"].shape == (m, 3) and np.isfinite(b0["poses"]).all(),
+             f"[dist] (b) {m} finite poses")
+    _require(b0["poses"].tobytes() == b1["poses"].tobytes()
+             and b0["covs"].tobytes() == b1["covs"].tobytes(),
+             "[dist] (b) both ranks' trajectories bitwise equal")
+    for b in (b0, b1):
+        for w in ("ndt_score_grad_hess", "ndt_scores", "nn_sq_dists"):
+            _require(b["wrappers"][w] > 0, f"[dist] (b) {w} launched")
+
+    one = pack_verify_out(verify_candidates(
+        full, vin["src"].xy, vin["src"].mask, vin["tgt_xy"],
+        vin["tgt_mask"], vin["init"])).cpu().numpy()
+    vgap = float(np.abs(v0[:, :3] - one[:, :3]).max())
+    pcg, _ = optimize_pcg(office._replace(**{
+        f: getattr(office, f).to(device) for f in office._fields}))
+    pcg = pcg.cpu().numpy()
+    ogap = float(np.hypot(*(o0[:, :2] - pcg[:, :2]).T).max())
+    print(f"[dist] (c) make_sharded_verify on 2 ranks: accepted "
+          f"{(v0[:, 6] == 1.0).tolist()} (one device "
+          f"{(one[:, 6] == 1.0).tolist()}), relative poses within "
+          f"{vgap:.3g}; make_sharded_optimize of [loop]'s final graph "
+          f"({int(office.node_mask.sum())} nodes, "
+          f"{int(office.edge_mask.sum())} edges) within {ogap:.3g} m of "
+          f"optimize_pcg", flush=True)
+    _require(v0.tobytes() == v1.tobytes() and o0.tobytes() == o1.tobytes(),
+             "[dist] (c) both ranks hold the same rows and poses")
+    _require(np.array_equal(v0[:, 6], one[:, 6]),
+             "[dist] (c) sharded verify: accepted equal")
+    _require(ogap <= DIST_PGO_TOL_M,
+             f"[dist] (c) sharded PCG within {DIST_PGO_TOL_M} m")
+    return wrappers_a, [b0["wrappers"], b1["wrappers"]]
+
+
+def _row_launches(name, wrappers):
+    """A kernels-line row's launches in a run counted by wrapper: a
+    variant's own wrapper, a kernel's wrappers together (as
+    `kernels.launch_counts` adds them)."""
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    if name in PIPELINE_WRAPPERS:
+        return wrappers[PIPELINE_WRAPPERS[name]]
+    return sum(wrappers[f.__name__] for f in kernels.WRAPPERS[name])
 
 
 def main() -> int:
@@ -2317,9 +2529,8 @@ def main() -> int:
     # 6. the loop-closure verifier on the [main] run's keyframes, the
     # kernel variants it runs against their twins at its shapes, and the
     # pose-graph solvers on the card against the CPU
-    rows += _loop_closure_phases(
-        _verify_inputs(cfg, frames, gt, fe_full, device), scenes["synthetic"],
-        office)
+    vin = _verify_inputs(cfg, frames, gt, fe_full, device)
+    rows += _loop_closure_phases(vin, scenes["synthetic"], office)
     for row in rows:
         if row["name"] in VARIANT_WRAPPERS:
             row["launches_loop"] = wrappers_loop[VARIANT_WRAPPERS[row["name"]]]
@@ -2381,8 +2592,17 @@ def main() -> int:
             wrappers_pipe[PIPELINE_WRAPPERS[r["name"]]]
             if r["name"] in PIPELINE_WRAPPERS else counts_pipe[r["name"]])
     lap("pipeline")
-    _check_gather(frames, gt, device, full, fe_full)
+    _check_gather(frames, gt, device, full, fe_full, vin)
     lap("gather")
+
+    # 11. the multi-rank runners
+    dist_a, dist_b = _check_dist(frames, gt, full, fe_full, vin, office,
+                                 device)
+    for r in rows:
+        r["launches_dist"] = _row_launches(r["name"], dist_a)
+        r["launches_dist_ranks"] = [_row_launches(r["name"], w)
+                                    for w in dist_b]
+    lap("dist")
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here", flush=True)

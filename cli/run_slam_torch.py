@@ -30,6 +30,23 @@ config.PIPELINE_AUTO_DEPTH_ON_CUDA on cuda and to 0 on the CPU);
 summary.json then holds pipeline_depth, pipeline_rollbacks and
 pipeline_replayed. --profile DIR writes a torch.profiler Chrome trace
 of the frame loop to DIR/trace.json.
+
+Several ranks, launched by torchrun (RANK, WORLD_SIZE, MASTER_ADDR):
+
+  torchrun --nproc-per-node 2 cli/run_slam_torch.py --distributed \
+      --log tests/data/office_loop.clf --format carmen --out out/ \
+      --device cpu
+
+--distributed joins the process group (nccl when every rank has a card
+of its own, gloo when ranks share one or run on the CPU; the choice is
+printed). With more than one rank, rank 0 reads the log and broadcasts
+every frame, the registration runs sharded over all ranks
+(pipeline/dist_runner.py), every rank keeps the same trajectory and
+rank 0 writes the pose files, the map and summary.json (the JAX CLI's
+multi-process keys: frames, processes, accept_rate, ate_rmse_m);
+checkpoints, --viz and --profile are refused there. --loop-shard
+(implies --loop) fans the loop-closure verification out over the ranks'
+"dp" axis; in a single process it runs over a one-rank group.
 """
 
 from __future__ import annotations
@@ -81,7 +98,15 @@ def main():
                     help="write a torch.profiler trace of the frame loop "
                          "to this directory")
     ap.add_argument("--device", default="cuda",
-                    help="torch device to run on (default: cuda)")
+                    help="torch device to run on (default: cuda; under "
+                         "--distributed each rank's own card)")
+    ap.add_argument("--distributed", action="store_true",
+                    help="join the torchrun process group; with more "
+                         "than one rank the registration is sharded over "
+                         "the ranks and only rank 0 writes files")
+    ap.add_argument("--loop-shard", action="store_true",
+                    help="shard loop-closure candidate verification over "
+                         "the ranks (implies --loop)")
     ap.add_argument("-v", "--verbose", action="store_true")
     args = ap.parse_args()
     if not args.simulate and not args.log:
@@ -93,6 +118,32 @@ def main():
     if device.type == "cuda" and not torch.cuda.is_available():
         sys.exit("run_slam_torch: --device cuda but no CUDA device is "
                  "available (pass --device cpu to run on the CPU)")
+
+    rt, store = None, None
+    if args.distributed or args.loop_shard:
+        import tempfile
+
+        from ndt_slam_tpu_torch.parallel import dist as pdist
+
+        rt = pdist.initialize(device=device)
+        if rt is None and args.loop_shard:
+            # a mesh needs a process group: one rank, over a file store
+            store = tempfile.TemporaryDirectory()
+            rt = pdist.initialize(init_file=os.path.join(store.name, "pg"),
+                                  world_size=1, rank=0, device=device)
+        if rt is not None:
+            device = rt.device
+    try:
+        _run(args, device, rt)
+    finally:
+        if rt is not None:
+            pdist.shutdown()
+        if store is not None:
+            store.cleanup()
+
+
+def _run(args, device, rt):
+    import torch
 
     from ndt_slam_tpu_torch.config import SlamConfig
     from ndt_slam_tpu_torch.io import native
@@ -113,9 +164,15 @@ def main():
         overrides["end_frame"] = args.end_frame
     if args.sidelidar:
         overrides["sidelidar"] = True
-    if args.loop:
+    if args.loop or args.loop_shard:
         overrides["loop_enable"] = True
     cfg = SlamConfig().replace(**overrides)
+    mesh = None
+    if args.loop_shard:
+        from ndt_slam_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(dp=rt.world_size)   # every rank on the "dp" axis
+    multi = rt is not None and rt.world_size > 1
+    coordinator = rt is None or rt.rank == 0
 
     true_poses = read_carmen_gt(args.gt) if args.gt else None
     if args.simulate:
@@ -125,6 +182,8 @@ def main():
             true_poses = np.asarray([f.true_pose for f in frames])
         cfg = cfg.replace(end_frame=max(cfg.end_frame, args.simulate))
         reader = "simulator"
+    elif multi and not coordinator:
+        frames, stamps, reader = None, None, None   # rank 0 broadcasts
     else:
         # the native parsers where csrc/libndtslam.so loads, else numpy
         reader = "native" if native.available() else "numpy"
@@ -138,6 +197,9 @@ def main():
             frames = read(args.log, sidelidar=cfg.sidelidar)
         stamps = [f.stamp for f in frames]
 
+    if multi:
+        _run_distributed(args, cfg, device, rt, frames, true_poses, mesh)
+        return
     os.makedirs(args.out, exist_ok=True)
     t0 = time.perf_counter()
     fe = run_slam(frames, cfg, device, out_dir=args.out,
@@ -145,7 +207,7 @@ def main():
                   verbose=args.verbose, checkpoint_path=args.checkpoint,
                   checkpoint_every=args.checkpoint_every, resume=args.resume,
                   viz_every=args.viz_every, viz_final=args.viz,
-                  profile_dir=args.profile)
+                  profile_dir=args.profile, mesh=mesh)
     summary = {
         "frames": len(fe.pose_history),
         "device": str(device),
@@ -181,6 +243,8 @@ def main():
         summary["grid_fallbacks"] = fe.n_grid_fallbacks
     if device.type == "cuda":
         summary["device_name"] = torch.cuda.get_device_name(device)
+    if rt is not None:
+        summary["backend"] = rt.backend
     if true_poses is not None and fe.pose_history:
         n = len(fe.pose_history)
         # poses_full.txt row k is the k-th processed frame
@@ -190,6 +254,46 @@ def main():
         summary["ate_rmse_m"] = ate_rmse(fe.get_poses(), gt)
         odo = np.asarray([f.odo_pose for f in frames[first:first + n]])
         summary["ate_odometry_m"] = ate_rmse(odo, gt)
+    with open(os.path.join(args.out, "summary.json"), "w") as f:
+        json.dump(summary, f, indent=2)
+    print(json.dumps(summary))
+
+
+def _run_distributed(args, cfg, device, rt, frames, true_poses, mesh):
+    """The multi-rank sequential loop: rank 0 holds the frames and
+    writes the outputs and summary.json."""
+    import numpy as np
+
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+    from ndt_slam_tpu_torch.pipeline.dist_runner import run_slam_distributed
+
+    coordinator = rt.rank == 0
+    for flag, name in [(args.checkpoint, "--checkpoint"),
+                       (args.profile, "--profile"),
+                       (args.viz or args.viz_every, "--viz")]:
+        if flag:
+            sys.exit(f"run_slam_torch: {name} is not supported with more "
+                     f"than one rank")
+    if coordinator:
+        os.makedirs(args.out, exist_ok=True)
+    fe = run_slam_distributed(
+        frames if coordinator else None, cfg, device, loop_mesh=mesh,
+        out_dir=args.out if coordinator else None,
+        verbose=args.verbose and coordinator)
+    if not coordinator:
+        return
+    summary = {
+        "frames": len(fe.pose_history),
+        "processes": rt.world_size,
+        "backend": rt.backend,
+        "device": str(device),
+        "accept_rate": float(np.mean([
+            1.0 if m.get("successful") else 0.0 for m in fe.metrics
+        ])) if fe.metrics else 0.0,
+    }
+    if true_poses is not None and fe.pose_history:
+        n = len(fe.pose_history)
+        summary["ate_rmse_m"] = ate_rmse(fe.get_poses(), true_poses[:n])
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=2)
     print(json.dumps(summary))

@@ -65,8 +65,7 @@ class SlamConfig:
     ndt_neighborhood: int = 1
     # "auto", "compact" and "pallas" name the compact table (the CUDA
     # kernels); "gather" the dense-window neighbour gather in tensor
-    # code (ndt/score.py, the sequential path only; see
-    # resolved_ndt_engine).
+    # code (ndt/score.py; see resolved_ndt_engine).
     ndt_engine: str = "auto"
     ndt_max_active_cells: int = 2048
     source_leaf_size: float = 0.05

@@ -91,8 +91,8 @@ def read_checkpoint(path: str):
 
 
 def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
-                        device, cfg: Optional[SlamConfig] = None
-                        ) -> FrontEnd:
+                        device, cfg: Optional[SlamConfig] = None,
+                        mesh=None) -> FrontEnd:
     """A FrontEnd restored from checkpoint fields: `arrays` holds the
     `.npz` arrays, `meta` the JSON manifest. Without `cfg` the
     manifest's config is taken; a `PipelinedFrontEnd` when its depth
@@ -102,7 +102,8 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
 
     The back end's state is restored into the front end's back end; a
     file that holds it for a config without `loop_enable` is refused
-    (resuming with loops off would drop the graph)."""
+    (resuming with loops off would drop the graph). `mesh` goes to the
+    front end (its back end's sharded verification)."""
     device = torch.device(device)
     if cfg is None:
         cfg = SlamConfig.from_dict(stored_config(meta))
@@ -113,9 +114,9 @@ def frontend_from_state(arrays: Mapping[str, np.ndarray], meta: Mapping,
             f"({backend or 'manifest'}), but the config has loop_enable off"
         )
     if cfg.resolved_pipeline_depth(device.type) > 0:
-        fe = PipelinedFrontEnd(cfg, device)
+        fe = PipelinedFrontEnd(cfg, device, mesh=mesh)
     else:
-        fe = FrontEnd(cfg, device)
+        fe = FrontEnd(cfg, device, mesh=mesh)
     fe.cnt = int(meta["cnt"])
     fe.metrics = list(meta["metrics"])
     if meta["has_prev_odo"]:

@@ -1,5 +1,5 @@
 """Pose-graph back end: nodes, edges, loop detection, optimisation (port
-of `ndt_slam_tpu.graph.backend`, the single-device path).
+of `ndt_slam_tpu.graph.backend`).
 
 Every processed frame becomes a graph node, odometry edges chain
 consecutive fused poses, and accepted loop closures add long-range
@@ -16,8 +16,14 @@ travels to the host in one copy. That copy is started at dispatch
 `loop_verify_async`, at the next check, so that the verification and
 its copy overlap the frames in between.
 
-The mesh branch (candidates sharded over devices) and its host scan
-cache come with the distributed slice of the port.
+With a mesh, the verification fans out over its "dp" ranks
+(`graph/loop_closure.make_sharded_verify`): every rank holds the same
+bookkeeping, passes the whole candidate batch, verifies its slice and
+receives every row. The batch capacity is rounded up to the "dp" size.
+The batch is assembled on the host from a cache of the keyframes' scans
+(one device-to-host copy per keyframe ever, not per check) and goes to
+the device in one copy; `_evict_stale_scan_cache` drops the entries of
+keyframes the store has decimated away.
 """
 
 from __future__ import annotations
@@ -30,10 +36,11 @@ import torch
 
 from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core.angles import sub_deg
-from ndt_slam_tpu_torch.core.points import PointBuffer
+from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer
 from ndt_slam_tpu_torch.graph.keyframes import KeyframeStore
 from ndt_slam_tpu_torch.graph.loop_closure import (
-    pack_verify_out, unpack_verify_row, verify_candidates,
+    make_sharded_verify, pack_verify_out, unpack_verify_row,
+    verify_candidates,
 )
 from ndt_slam_tpu_torch.graph.pose_graph import (
     optimize, optimize_hierarchical, pack_graph,
@@ -73,9 +80,10 @@ def pos_var(cov_deg: np.ndarray) -> float:
 
 
 class GraphBackend:
-    """Host bookkeeping plus verification and optimisation on `device`."""
+    """Host bookkeeping plus verification and optimisation on `device`;
+    with `mesh`, the verification sharded over its "dp" ranks."""
 
-    def __init__(self, cfg: SlamConfig, device):
+    def __init__(self, cfg: SlamConfig, device, mesh=None):
         self.cfg = cfg
         self.device = torch.device(device)
         self.keyframes = KeyframeStore(cfg)
@@ -96,6 +104,15 @@ class GraphBackend:
         # drift-aware candidate radius
         self._cum_pos_var = 0.0
         self._batch_capacity = cfg.loop_max_candidates
+        self.mesh = mesh
+        self._verify_sharded = None
+        # the sharded path's host copies of keyframe scans, by sid
+        self._host_scan_cache: dict = {}
+        if mesh is not None:
+            from ndt_slam_tpu_torch.parallel.mesh import axis_size
+            dp = axis_size(mesh, "dp")
+            self._batch_capacity = -(-cfg.loop_max_candidates // dp) * dp
+            self._verify_sharded = make_sharded_verify(mesh, cfg)
         self.verify_async = cfg.resolved_loop_verify_async(self.device.type)
         # a dispatched verification: (sid, candidate sids, packed device
         # rows, host rows, event marking the host copy's end or None)
@@ -188,12 +205,23 @@ class GraphBackend:
             return False
         return node_idx - self._last_opt_node >= self.cfg.loop_opt_min_frames
 
+    def _evict_stale_scan_cache(self) -> None:
+        """Drop the sharded path's host copies of keyframes no longer in
+        the store (decimation); it would grow without bound otherwise."""
+        live = set(self.keyframes.sids)
+        if len(self._host_scan_cache) > len(live):
+            for s_k in list(self._host_scan_cache):
+                if s_k not in live:
+                    del self._host_scan_cache[s_k]
+
     def _dispatch_verify(self, sid: int, fused_pose_deg: np.ndarray,
                          scan_local: PointBuffer, cand: List[int]) -> None:
         """Dispatch the batched verification of the candidate keyframes:
         their scans (device references) stacked on the device with
-        masked filler rows up to the batch capacity, the result packed
-        into one [B,16] array whose copy to the host starts now."""
+        masked filler rows up to the batch capacity (with a mesh:
+        assembled on the host from the scan cache and sent in one
+        copy), the result packed into one [B,16] array whose copy to the
+        host starts now."""
         B = self._batch_capacity
         S = scan_local.xy.shape[0]
         init = np.zeros((B, 3), np.float32)
@@ -201,17 +229,37 @@ class GraphBackend:
             init[b] = _pose_deg_to_rad(_cal_motion_np(
                 np.asarray(fused_pose_deg, np.float32),
                 self.keyframes.poses_deg[k]))
-        if self._dummy_scan is None or self._dummy_scan.capacity != S:
-            self._dummy_scan = PointBuffer.empty(S, self.device)
-        fill = B - len(cand)
-        out = verify_candidates(
-            self.cfg, scan_local.xy, scan_local.mask,
-            torch.stack([self.keyframes.scan_xy[k] for k in cand]
-                        + [self._dummy_scan.xy] * fill),
-            torch.stack([self.keyframes.scan_mask[k] for k in cand]
-                        + [self._dummy_scan.mask] * fill),
-            torch.from_numpy(init).to(self.device),
-        )
+        init_dev = torch.from_numpy(init).to(self.device)
+        if self._verify_sharded is not None:
+            self._evict_stale_scan_cache()
+            tgt = np.zeros((B, S, 3), np.float32)   # x, y, mask
+            tgt[:, :, :2] = PAD_COORD
+            for b, k in enumerate(cand):
+                s_k = self.keyframes.sids[k]
+                row = self._host_scan_cache.get(s_k)
+                if row is None:
+                    row = np.concatenate([
+                        self.keyframes.scan_xy[k].cpu().numpy(),
+                        self.keyframes.scan_mask[k].cpu().numpy()[:, None],
+                    ], axis=1).astype(np.float32)
+                    self._host_scan_cache[s_k] = row
+                tgt[b] = row[:S]
+            tgt = torch.from_numpy(tgt).to(self.device)
+            out = self._verify_sharded(
+                scan_local.xy, scan_local.mask,
+                tgt[..., :2].contiguous(), tgt[..., 2] > 0.5, init_dev)
+        else:
+            if self._dummy_scan is None or self._dummy_scan.capacity != S:
+                self._dummy_scan = PointBuffer.empty(S, self.device)
+            fill = B - len(cand)
+            out = verify_candidates(
+                self.cfg, scan_local.xy, scan_local.mask,
+                torch.stack([self.keyframes.scan_xy[k] for k in cand]
+                            + [self._dummy_scan.xy] * fill),
+                torch.stack([self.keyframes.scan_mask[k] for k in cand]
+                            + [self._dummy_scan.mask] * fill),
+                init_dev,
+            )
         packed = pack_verify_out(out)
         if packed.is_cuda:
             host = torch.empty(packed.shape, dtype=packed.dtype,

@@ -25,12 +25,17 @@ window kernels (`compact.GridStack`), and ICP and the overlap take all
 B candidates in one batched call of the nearest-neighbour kernel. The
 B grids of a stage are built by a loop over the candidates
 (`build_grid` and `compact_grid`, about 200 device operations each:
-the largest share of a verify's operations, `PERF.md` §5).
+the largest share of a verify's operations, `PERF.md` §5). The gather
+engine (`ndt_engine = "gather"`) registers against the B dense windows
+themselves: one `build_grid` over the [B,T,2] candidate scans gives a
+stacked `NDTGrid`, and no table is compacted, as JAX's `_verify_one`
+skips `compact_grid` there.
 Nothing waits for the host but the solver's done-flag polls; the
 caller fetches a verification as one [B,16] array (`pack_verify_out`).
 
-`make_sharded_verify` (the candidates sharded over devices) comes with
-the distributed slice of the port.
+`make_sharded_verify` shards the candidates over the ranks of a mesh
+dimension: each rank verifies its contiguous slice and the packed rows
+are gathered in rank order, so every rank holds all B.
 """
 
 from __future__ import annotations
@@ -49,7 +54,8 @@ from ndt_slam_tpu_torch.ndt.grid import build_grid
 from ndt_slam_tpu_torch.ndt.icp import icp_refine
 from ndt_slam_tpu_torch.ndt.kernels import nn_sq_dists_batched
 from ndt_slam_tpu_torch.ndt.score import gauss_constants
-from ndt_slam_tpu_torch.ndt.solve import GATHER_ROWS_TODO, NDTResult, align
+from ndt_slam_tpu_torch.ndt.solve import NDTResult, align
+from ndt_slam_tpu_torch.parallel.dist import axis
 
 
 class LoopVerifyOut(NamedTuple):
@@ -84,8 +90,7 @@ def verify_candidates(cfg: SlamConfig, src_xy, src_mask, tgt_xy, tgt_mask,
     keyframe scans `tgt_xy` [B,T,2] / `tgt_mask` [B,T] (each in its own
     frame) from `init_rel_rad` [B,3]. Runs on the device of the
     tensors: the CUDA kernels on the card, their twins on the CPU."""
-    if cfg.resolved_ndt_engine == "gather":
-        raise NotImplementedError(GATHER_ROWS_TODO)
+    gather = cfg.resolved_ndt_engine == "gather"
     dev = src_xy.device
     b = tgt_xy.shape[0]
     rows = torch.arange(b, dtype=torch.int32, device=dev)
@@ -96,12 +101,16 @@ def verify_candidates(cfg: SlamConfig, src_xy, src_mask, tgt_xy, tgt_mask,
     for si, mult in enumerate(cfg.loop_stage_mults):
         nxs = max(16, cfg.grid_cells_x // mult)
         nys = max(16, cfg.grid_cells_y // mult)
-        gs = stack_grids([
-            compact_grid(build_grid(tgt_xy[k], tgt_mask[k], center[k], nxs,
-                                    nys, res * mult,
-                                    min_pts=cfg.ndt_min_points_per_cell),
-                         cfg.ndt_max_active_cells)
-            for k in range(b)])
+        if gather:
+            gs = build_grid(tgt_xy, tgt_mask, center, nxs, nys, res * mult,
+                            min_pts=cfg.ndt_min_points_per_cell)
+        else:
+            gs = stack_grids([
+                compact_grid(build_grid(tgt_xy[k], tgt_mask[k], center[k],
+                                        nxs, nys, res * mult,
+                                        min_pts=cfg.ndt_min_points_per_cell),
+                             cfg.ndt_max_active_cells)
+                for k in range(b)])
         d1s, d2s = gauss_constants(res * mult, cfg.ndt_outlier_ratio)
         kw = dict(max_iterations=(cfg.loop_stage_max_iterations
                                   or cfg.ndt_max_iterations),
@@ -168,6 +177,35 @@ def pack_verify_out(out: LoopVerifyOut) -> torch.Tensor:
         out.accepted.to(torch.float32)[:, None],
         out.hessian.reshape(-1, 9),
     ], dim=1)
+
+
+def unpack_verify_rows(packed: torch.Tensor) -> LoopVerifyOut:
+    """[B,16] packed rows -> LoopVerifyOut (views, `accepted` bool)."""
+    return LoopVerifyOut(
+        rel_pose_rad=packed[:, 0:3], cost=packed[:, 3],
+        overlap=packed[:, 4], overlap_tgt=packed[:, 5],
+        accepted=packed[:, 6] == 1.0,
+        hessian=packed[:, 7:16].unflatten(-1, (3, 3)))
+
+
+def make_sharded_verify(mesh, cfg: SlamConfig, axis_batch: str = "dp"):
+    """Candidate verification with the batch sharded over `axis_batch`
+    of `mesh`: the multi-rank loop-closure fan-out. The current scan is
+    replicated; each rank verifies its contiguous slice of the
+    candidates (no collective inside: the candidates are independent)
+    and the packed rows are gathered in rank order.
+
+    Returns fn(src_xy [S,2], src_mask [S], tgt_xy [B,T,2], tgt_mask
+    [B,T], init_rel_rad [B,3]) -> LoopVerifyOut of all B candidates, the
+    same on every rank; every rank passes the whole batch, and B must
+    divide by the axis size (pad with masked candidates)."""
+    ax = axis(mesh, axis_batch)
+
+    def fn(src_xy, src_mask, tgt_xy, tgt_mask, init_rel_rad):
+        out = verify_candidates(cfg, src_xy, src_mask, ax.shard(tgt_xy),
+                                ax.shard(tgt_mask), ax.shard(init_rel_rad))
+        return unpack_verify_rows(ax.gather(pack_verify_out(out)))
+    return fn
 
 
 def unpack_verify_row(row: np.ndarray):

@@ -39,8 +39,9 @@ Two things differ from the JAX package in how, not in what:
   flag only every `CG_POLL` iterations; the Gauss-Newton loop of
   `optimize_pcg` reads its chi2-plateau flag once a step.
 
-`make_sharded_optimize` (edges sharded over devices) comes with the
-distributed slice of the port.
+`make_sharded_optimize` runs the PCG solve with the edges sharded over
+the ranks of a mesh dimension (`_pcg_gn` with a reduce over the
+shards), the node state replicated.
 """
 
 from __future__ import annotations
@@ -296,7 +297,41 @@ def _pcg(hvp, rhs, precond, max_iters: int, tol: float):
 def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
                  cg_tol: float = 1e-5, damping: float = 1e-6,
                  precond_seg_len: int = 0):
-    """Matrix-free GN/PCG solve. Same contract as `optimize` (node 0
+    """Matrix-free GN/PCG solve: `_pcg_gn` on one device."""
+    return _pcg_gn(graph, iterations, cg_iters, cg_tol, damping, None,
+                   precond_seg_len)
+
+
+def make_sharded_optimize(mesh, axis: str = "dp", iterations: int = 20,
+                          cg_iters: int = 512, cg_tol: float = 1e-5,
+                          damping: float = 1e-6):
+    """PCG pose-graph solve with the edges sharded over `axis` of `mesh`.
+
+    Returns fn(graph) -> (poses_rad [N,3], chi2), the same on every rank:
+    every rank passes the whole graph and solves with its contiguous
+    slice of the edges; the node arrays are replicated, and the edges'
+    gradient, H v, preconditioner blocks and chi2 are summed over the
+    axis. The edge capacity must divide by the axis size (pad with
+    masked edges)."""
+    from ndt_slam_tpu_torch.parallel.dist import axis as mesh_axis
+
+    ax = mesh_axis(mesh, axis)
+
+    def fn(graph: PoseGraph):
+        local = graph._replace(
+            idx_i=ax.shard(graph.idx_i), idx_j=ax.shard(graph.idx_j),
+            z_rad=ax.shard(graph.z_rad), omega=ax.shard(graph.omega),
+            edge_mask=ax.shard(graph.edge_mask))
+        return _pcg_gn(local, iterations, cg_iters, cg_tol, damping, ax.sum)
+    return fn
+
+
+def _pcg_gn(graph: PoseGraph, iterations: int, cg_iters: int, cg_tol: float,
+            damping: float, reduce, precond_seg_len: int = 0):
+    """Matrix-free GN/PCG solve, the body of `optimize_pcg` and
+    `make_sharded_optimize`: `graph`'s edge arrays may be this rank's
+    shard, `reduce` (None: one device) sums an edge sum over the shards;
+    the node arrays are replicated. Same contract as `optimize` (node 0
     held at its input value) with O(N + E) memory: Gauss-Newton with
     PCG steps, until `iterations` steps or a step that lowers chi2 by
     less than 0.1 %.
@@ -324,8 +359,11 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
         raise ValueError(f"node capacity {n} is no multiple of the "
                          f"segment length {precond_seg_len}")
 
+    def total(t):
+        return t if reduce is None else reduce(t)
+
     def chi2_of(p):
-        return _chi2(graph, om, p)
+        return total(_chi2(graph, om, p))
 
     def seg_inverse(poses):
         """The [M, 3L, 3L] inverses of the per-segment sub-Hessians at
@@ -341,10 +379,10 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
         H_ij = AtO @ B
         ids = torch.cat([si * L * L + oi * L + oi, sj * L * L + oj * L + oj,
                          si * L * L + oi * L + oj, si * L * L + oj * L + oi])
-        blocks = SortedSegments(ids, m * L * L).sum(torch.cat([
+        blocks = total(SortedSegments(ids, m * L * L).sum(torch.cat([
             (AtO @ A) * fi, (BtO @ B) * fj, H_ij * cpl,
             H_ij.transpose(-1, -2) * cpl,
-        ]).reshape(-1, 9)).reshape(m * L * L, 3, 3)
+        ]).reshape(-1, 9))).reshape(m * L * L, 3, 3)
         at = torch.arange(n, device=free.device)
         at = at // L * (L * L) + (at % L) * (L + 1)
         blocks[at] = blocks[at] + diag
@@ -362,7 +400,7 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
             return torch.where(torch.isfinite(out), out, v * ff)
 
     def jacobi_precond(A, B, AtO, BtO):
-        D = nodes.sum(torch.cat([AtO @ A, BtO @ B]).reshape(-1, 9))
+        D = total(nodes.sum(torch.cat([AtO @ A, BtO @ B]).reshape(-1, 9)))
         inv, info = torch.linalg.inv_ex(D.reshape(n, 3, 3) + diag)
         minv = torch.where((info == 0)[:, None, None], inv, float("nan"))
 
@@ -372,8 +410,8 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
 
     def gn_step(poses):
         r, A, B, AtO, BtO = _edge_terms(graph, om, poses)
-        b = nodes.sum(torch.cat([(AtO @ r[:, :, None])[..., 0],
-                                 (BtO @ r[:, :, None])[..., 0]]))
+        b = total(nodes.sum(torch.cat([(AtO @ r[:, :, None])[..., 0],
+                                       (BtO @ r[:, :, None])[..., 0]])))
         precond = (seg_precond if precond_seg_len > 0
                    else jacobi_precond(A, B, AtO, BtO))
 
@@ -381,8 +419,8 @@ def optimize_pcg(graph: PoseGraph, iterations: int = 20, cg_iters: int = 512,
             vf = v * ff
             u = ((A @ vf.index_select(0, ii)[:, :, None])
                  + (B @ vf.index_select(0, jj)[:, :, None]))
-            out = nodes.sum(torch.cat([(AtO @ u)[..., 0],
-                                       (BtO @ u)[..., 0]]))
+            out = total(nodes.sum(torch.cat([(AtO @ u)[..., 0],
+                                             (BtO @ u)[..., 0]])))
             out = out + damping * vf
             # identity on fixed and invalid rows keeps the operator SPD
             return out * ff + v * (1.0 - ff)

@@ -93,10 +93,38 @@ def fitness_score_plain(src_xy, src_mask, tgt_xy, tgt_mask):
     return torch.where((n > 0) & have_tgt, mean, BIG)
 
 
-def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask):
+def fitness_score(src_xy, src_mask, tgt_xy, tgt_mask, axis=None,
+                  sharded: str = "sources"):
     """Mean squared NN distance over valid sources; BIG when there are
     no sources or no valid targets. A CUDA tensor goes to the kernel, a
-    CPU tensor to `fitness_score_plain`."""
-    from ndt_slam_tpu_torch.ndt.kernels import fitness_score as routed
+    CPU tensor to `fitness_score_plain`.
 
-    return routed(src_xy, src_mask, tgt_xy, tgt_mask)
+    With `axis` (`parallel.dist.Axis`), `sharded` says which buffers are
+    this rank's shards:
+    - "sources": the sources; each rank scores its shard
+      (`kernels.nn_sq_dists`), (total, n) are summed over the axis;
+    - "targets": the targets; the per-source minimum is taken over the
+      axis;
+    - "both": both; the target shards are gathered in rank order first,
+      then as "sources".
+    Whether any target is valid is the maximum over the axis."""
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    if axis is None:
+        return kernels.fitness_score(src_xy, src_mask, tgt_xy, tgt_mask)
+    if sharded == "both":
+        tgt_xy, tgt_mask = axis.gather(tgt_xy), axis.gather(tgt_mask)
+        sharded = "sources"
+    if sharded not in ("sources", "targets"):
+        raise ValueError(f"sharded={sharded!r}: sources, targets or both")
+    d2 = kernels.nn_sq_dists(src_xy, src_mask, tgt_xy, tgt_mask)
+    if sharded == "targets":
+        d2 = axis.min(d2)
+    tn = torch.stack([torch.sum(torch.where(src_mask, d2, 0.0)),
+                      src_mask.sum(dtype=torch.float32)])
+    if sharded == "sources":
+        tn = axis.sum(tn)
+    have_tgt = axis.max(tgt_mask.any().to(torch.float32)) > 0.0
+    total, n = tn[0], tn[1]
+    mean = total / torch.clamp(n, min=1.0)
+    return torch.where((n > 0) & have_tgt, mean, BIG)

@@ -34,7 +34,8 @@ from ndt_slam_tpu_torch.core.segment import segment_sum
 
 
 class NDTGrid(NamedTuple):
-    """One window, or [B] leading every tensor for B windows."""
+    """One window, or [B] leading every tensor for B windows (a stacked
+    grid: `origin` [B,2], one nx, ny and resolution for all)."""
     origin: torch.Tensor    # [2] lower-left corner of the window (world)
     mean: torch.Tensor      # [C, 2] per-cell mean
     inv_cov: torch.Tensor   # [C, 2, 2] per-cell inverse covariance
@@ -95,10 +96,17 @@ def grid_origin(center: torch.Tensor, nx: int, ny: int, resolution: float):
     return torch.floor(corner / resolution) * resolution
 
 
-def grid_moments(xy, mask, origin, nx: int, ny: int, resolution: float):
+def grid_moments(xy, mask, origin, nx: int, ny: int, resolution: float,
+                 axis=None):
     """Per-cell (count, sx, sy, sxx, sxy, syy), each [nx*ny]; B rows
     ([B,L,2] points, [B,L] masks, [B,2] origins) give [B, nx*ny] each,
-    from one segment sum keyed by (row, cell)."""
+    from one segment sum keyed by (row, cell).
+
+    The moments are additive: with `axis` (`parallel.dist.Axis`) `xy` is
+    this rank's shard of the target and the partial moments are summed
+    over the axis in one collective before `grid_finalize`. The cell
+    corners they are relative to depend on the cell and the origin only,
+    so the partials add up on every rank."""
     num_cells = nx * ny
     org = origin[..., None, :]
     rel = (xy - org) / resolution
@@ -124,6 +132,8 @@ def grid_moments(xy, mask, origin, nx: int, ny: int, resolution: float):
     rows = torch.stack([ones, xr, yr, xr * xr, xr * yr, yr * yr], dim=-1)
     acc = segment_sum(rows.reshape(-1, 6), cid.reshape(-1),
                       rows_b * num_cells)
+    if axis is not None:
+        acc = axis.sum(acc)
     acc = acc.reshape(*xy.shape[:-2], num_cells, 6)
     return tuple(acc[..., i] for i in range(6))
 
@@ -245,9 +255,12 @@ def _finalize_abs(moments, origin, anchor, nx: int, ny: int,
 
 
 def build_grid(xy, mask, center, nx: int, ny: int, resolution: float,
-               min_pts: int = 6, eig_mult: float = 0.01) -> NDTGrid:
+               min_pts: int = 6, eig_mult: float = 0.01,
+               axis=None) -> NDTGrid:
     """Moments + finalize over an nx*ny window centered on `center`;
-    [B,L,2] / [B,L] targets and [B,2] centers give B windows."""
+    [B,L,2] / [B,L] targets and [B,2] centers give B windows (a stacked
+    `NDTGrid`). With `axis`, `xy` is this rank's target shard (see
+    `grid_moments`)."""
     origin = grid_origin(center, nx, ny, resolution)
-    m = grid_moments(xy, mask, origin, nx, ny, resolution)
+    m = grid_moments(xy, mask, origin, nx, ny, resolution, axis=axis)
     return grid_finalize(m, origin, nx, ny, resolution, min_pts, eig_mult)

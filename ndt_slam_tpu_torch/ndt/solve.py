@@ -18,17 +18,25 @@ masked after convergence.
 The engine follows the grid's type, as in the JAX package: a
 `CompactGrid` (or `GridStack`) takes the compact table's CUDA kernels
 (their plain twins for CPU tensors), an `NDTGrid` the dense-window
-gather engine of `ndt/score.py` (tensor code, one pose only).
+gather engine of `ndt/score.py` (tensor code).
 
 A row axis stands in for the JAX package's `vmap` of `align` (the
-loop-closure verifier's coarse starts and candidates): R poses [R,3],
-row r against grid `grid_index[r]` of a `GridStack`. `done` and the
-iteration count are [R], a row that is done stays masked as the
-vmapped `while_loop` keeps it, and the host polls `done.all()`. The 3x3
+loop-closure verifier's coarse starts and candidates, the lockstep
+runner's sequences): R poses [R,3], row r against grid `grid_index[r]`
+of a `GridStack` or of a stacked `NDTGrid`. `done` and the iteration
+count are [R], a row that is done stays masked as the vmapped
+`while_loop` keeps it, and the host polls `done.all()`. The 3x3
 algebra runs on [R,3,3] in the same operations as for one pose, so an
 iteration issues as many small operations for 20 rows as for one; the
-two kernel calls take all rows (and their 12 line-search candidates
+two score calls take all rows (and their 12 line-search candidates
 each) at once.
+
+With `axis` (`parallel.dist.Axis`, the JAX package's `axis_name`) the
+source is this rank's shard of the points: the partial sums of (E, g,
+H, matched), the 12 candidate scores and the source count are summed
+over the axis's ranks, so every rank runs the same Newton iteration on
+the same bits. On CUDA tensors the window kernels run on the shard and
+their sums are the partials.
 """
 
 from __future__ import annotations
@@ -47,10 +55,6 @@ from ndt_slam_tpu_torch.ndt.kernels import (
     ndt_score_grad_hess, ndt_score_grad_hess_grids, ndt_scores,
     ndt_scores_grids,
 )
-
-# what the gather engine's refusals say: where its row axis is queued
-GATHER_ROWS_TODO = ("the gather engine has no row axis in the port yet "
-                    "(ROADMAP.md queue 1, item 14)")
 
 # Candidate step-length scales evaluated in parallel each iteration.
 _LS_SCALES = np.array([1.0, 0.5, 0.25, 0.1, 0.04, 0.015], dtype=np.float32)
@@ -138,15 +142,32 @@ def _clamp_norm(v, step_size: float):
     return v * (torch.clamp(nrm, max=step_size) / torch.clamp(nrm, min=1e-12))
 
 
+def _summed(sgh, scores, axis):
+    """`sgh` and `scores` of a source shard, their results summed over
+    `axis`: (E, g, H, matched) in one collective as [..., 14] rows, the
+    candidate scores in another."""
+    def sgh_sum(p):
+        E, g, H, m = sgh(p)
+        t = axis.sum(torch.cat([E[..., None], g, H.flatten(-2),
+                                m[..., None]], dim=-1))
+        H = t[..., 4:13].unflatten(-1, (3, 3))
+        return t[..., 0], t[..., 1:4], H, t[..., 13]
+
+    def scores_sum(c):
+        return axis.sum(scores(c))
+    return sgh_sum, scores_sum
+
+
 def align(init_pose_rad, src_xy, src_mask,
           grid: CompactGrid | GridStack | NDTGrid, d1: float, d2: float,
           max_iterations: int = 35, step_size: float = 0.1,
           trans_eps: float = 0.01, radius: int = 1,
-          grid_index=None) -> NDTResult:
+          grid_index=None, axis=None) -> NDTResult:
     """Newton NDT solve of `src` against `grid`: one pose [3] against a
     `CompactGrid` (the kernels) or an `NDTGrid` (the gather engine), or
     R rows [R,3], row r against grid `grid_index[r]` (int32 [R]) of a
-    `GridStack`."""
+    `GridStack` or a stacked `NDTGrid`. With `axis`, `src` is this
+    rank's shard and every reduction is summed over the axis."""
     dev = src_xy.device
     scales = _ls_scales(dev)
     eye = torch.eye(3, dtype=torch.float32, device=dev)
@@ -154,21 +175,25 @@ def align(init_pose_rad, src_xy, src_mask,
     lead = pose.shape[:-1]
     it = torch.zeros(lead, dtype=torch.int32, device=dev)
     done = torch.zeros(lead, dtype=torch.bool, device=dev)
+    if lead and grid_index is None:
+        raise ValueError("align over rows takes a GridStack or a stacked "
+                         "NDTGrid, and a grid index per row")
     if isinstance(grid, NDTGrid):
-        if lead:
-            raise NotImplementedError(GATHER_ROWS_TODO)
+        cand_index = (None if grid_index is None else
+                      grid_index.repeat_interleave(2 * len(_LS_SCALES)))
 
         def sgh(p):
             return gather.ndt_score_grad_hess(p, src_xy, src_mask, grid, d1,
-                                              d2, radius)
+                                              d2, radius, grid_index)
 
         def scores(c):
-            return gather.ndt_negative_score(c, src_xy, src_mask, grid, d1,
-                                             d2, radius)
+            return gather.ndt_negative_score(
+                c.reshape(-1, 3), src_xy, src_mask, grid, d1, d2, radius,
+                cand_index).reshape(c.shape[:-1])
     elif lead:
-        if not isinstance(grid, GridStack) or grid_index is None:
-            raise ValueError("align over rows takes a GridStack and a grid "
-                             "index per row")
+        if not isinstance(grid, GridStack):
+            raise ValueError("align over rows takes a GridStack or a "
+                             "stacked NDTGrid")
         cand_index = grid_index.repeat_interleave(2 * len(_LS_SCALES))
 
         def sgh(p):
@@ -186,6 +211,9 @@ def align(init_pose_rad, src_xy, src_mask,
 
         def scores(c):
             return ndt_scores(c, src_xy, src_mask, grid, d1, d2, radius)
+
+    if axis is not None:
+        sgh, scores = _summed(sgh, scores, axis)
 
     for k in range(max_iterations):
         if k and k % DONE_POLL == 0 and bool(done.all() if lead else done):
@@ -224,6 +252,8 @@ def align(init_pose_rad, src_xy, src_mask,
     n_src = src_mask.sum(dim=-1, dtype=torch.float32)
     if n_src.dim():
         n_src = n_src.index_select(0, grid_index.to(torch.int64))
+    if axis is not None:
+        n_src = axis.sum(n_src)
     usable = ((matched >= 1.0) & (n_src >= 1.0)
               & torch.isfinite(pose).all(dim=-1))
     return NDTResult(pose_rad=pose, iterations=it, converged=usable,

@@ -83,8 +83,9 @@ class PipelinedFrontEnd(FrontEnd):
     while frames are in flight); `drain()` resolves the rest and
     `finalize()` drains first."""
 
-    def __init__(self, cfg: SlamConfig, device, depth: Optional[int] = None):
-        super().__init__(cfg, device)
+    def __init__(self, cfg: SlamConfig, device, depth: Optional[int] = None,
+                 mesh=None):
+        super().__init__(cfg, device, mesh=mesh)
         self.depth = depth if depth is not None else max(
             1, cfg.resolved_pipeline_depth(self.device.type))
         self._queue: List[_InFlight] = []

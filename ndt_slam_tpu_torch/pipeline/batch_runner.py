@@ -1,5 +1,5 @@
-"""Lockstep multi-sequence SLAM on one device (port of
-`ndt_slam_tpu.pipeline.batch_runner`, without the mesh).
+"""Lockstep multi-sequence SLAM (port of
+`ndt_slam_tpu.pipeline.batch_runner`).
 
 SLAM is sequential within a sequence: frame t+1 needs frame t's map.
 Across sequences there is no dependency, so a mapping farm runs B logs
@@ -32,19 +32,27 @@ a submap, or whose flag set differs from the tick's most common one, is
 handed back to its `FrontEnd` (`_dump_slot`), takes the per-sequence
 path and is stacked again when its flags match (`_load_slot`); a loop
 correction rebuilds the sequence's own map, which makes its slot stale.
+
+With a mesh the sequences are sharded over its "dp" ranks, as the JAX
+package shards the lockstep step's batch: each rank runs its contiguous
+rows in lockstep on its own device (the sequences share nothing, so no
+collective runs a tick), and `run_slam_batch` gathers every row's
+trajectory and records to every rank at the end. Ranks of one "dp" row
+and several "pt" ranks repeat the same rows.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer
 from ndt_slam_tpu_torch.mapping.pointcloud_map import _add_scan_and_target
-from ndt_slam_tpu_torch.ndt.solve import GATHER_ROWS_TODO
+from ndt_slam_tpu_torch.parallel.dist import axis
 from ndt_slam_tpu_torch.pipeline.frontend import (
     FrontEnd, StageTimer, _registration_step,
 )
@@ -71,24 +79,44 @@ def _is_slot(pending) -> bool:
     return type(pending) is tuple and pending[0] == "slot"
 
 
+class SequenceResult(NamedTuple):
+    """Another rank's sequence after a sharded run: what `FrontEnd`
+    keeps of a trajectory."""
+    pose_history: list
+    cov_history: list
+    metrics: list
+
+    def get_poses(self) -> np.ndarray:
+        return np.asarray(self.pose_history, dtype=np.float32)
+
+
 class BatchFrontEnd:
     """B FrontEnds on `device`, advanced in lockstep by one batched
     registration step and one batched map step a tick."""
 
     def __init__(self, cfg: SlamConfig, n_seq: int, device,
-                 frontends: Optional[Sequence[FrontEnd]] = None):
-        """`frontends`: n_seq FrontEnds on `device` to continue (loaded
-        from checkpoints, say) instead of new ones."""
-        if cfg.resolved_ndt_engine == "gather":
-            raise NotImplementedError(GATHER_ROWS_TODO)
+                 frontends: Optional[Sequence[FrontEnd]] = None,
+                 mesh=None):
+        """`frontends`: FrontEnds on `device` to continue (loaded from
+        checkpoints, say) instead of new ones, one for each row this
+        rank runs. With `mesh` the n_seq rows are sharded over its "dp"
+        ranks (n_seq must divide by their number): this rank runs rows
+        `self.rows` and holds their FrontEnds only."""
         self.cfg = cfg
         self.device = torch.device(device)
+        self.n_seq = n_seq
+        self._dp = axis(mesh, "dp")
+        if n_seq % self._dp.size:
+            raise ValueError(f"batch size {n_seq} must divide the dp axis "
+                             f"({self._dp.size})")
+        k = n_seq // self._dp.size
+        self.rows = range(self._dp.rank * k, (self._dp.rank + 1) * k)
         self.frontends: List[FrontEnd] = (
             list(frontends) if frontends is not None
-            else [FrontEnd(cfg, self.device) for _ in range(n_seq)])
-        if len(self.frontends) != n_seq:
-            raise ValueError(f"{len(self.frontends)} FrontEnds for {n_seq} "
-                             f"sequences")
+            else [FrontEnd(cfg, self.device) for _ in self.rows])
+        if len(self.frontends) != len(self.rows):
+            raise ValueError(f"{len(self.frontends)} FrontEnds for "
+                             f"{len(self.rows)} rows")
         for fe in self.frontends:
             fe._defer_map = True
             # batch mode always rebuilds the grid in full (the stacked
@@ -109,16 +137,25 @@ class BatchFrontEnd:
                       ) -> List[Optional[dict]]:
         """Advance every sequence one frame. An entry None idles its
         sequence's row (it has run out of frames). Returns the per-frame
-        records, None for an idle row."""
+        records, None for an idle row and for a row of another rank."""
+        n = self.n_seq
+        if len(scans_xy_local) != n or len(odo_poses_deg) != n:
+            raise ValueError(f"{len(scans_xy_local)} scans and "
+                             f"{len(odo_poses_deg)} odometry poses for "
+                             f"{n} sequences")
+        if sids is None:
+            sids = [None] * n
+        r = slice(self.rows.start, self.rows.stop)
+        recs: List[Optional[dict]] = [None] * n
+        recs[r] = self._process_rows(scans_xy_local[r], odo_poses_deg[r],
+                                     sids[r])
+        return recs
+
+    def _process_rows(self, scans_xy_local, odo_poses_deg, sids):
+        """`process_batch` over this rank's rows."""
         fes = self.frontends
         cfg = self.cfg
         B = len(fes)
-        if len(scans_xy_local) != B or len(odo_poses_deg) != B:
-            raise ValueError(f"{len(scans_xy_local)} scans and "
-                             f"{len(odo_poses_deg)} odometry poses for "
-                             f"{B} sequences")
-        if sids is None:
-            sids = [None] * B
         recs: List[Optional[dict]] = [None] * B
 
         # the tick's inputs as host [B, ...] blocks; idle rows keep
@@ -281,6 +318,20 @@ class BatchFrontEnd:
             fe.finalize()
         self.timer.resolve(wait=True)
 
+    def gather(self) -> list:
+        """All n_seq rows, gathered over the "dp" ranks: this rank's
+        FrontEnds, and a `SequenceResult` for every row of another rank
+        (after `finalize`)."""
+        if self._dp.group is None:
+            return list(self.frontends)
+        mine = [SequenceResult(fe.pose_history, fe.cov_history, fe.metrics)
+                for fe in self.frontends]
+        parts = [None] * self._dp.size
+        dist.all_gather_object(parts, mine, group=self._dp.group)
+        out = [row for part in parts for row in part]
+        out[self.rows.start:self.rows.stop] = self.frontends
+        return out
+
     def _flush_map_updates(self):
         """Run the tick's deferred map updates: the slots whose flag set
         is the tick's most common one (and that close no submap) in one
@@ -369,13 +420,16 @@ class BatchFrontEnd:
 
 
 def run_slam_batch(sequences: Sequence[Sequence], cfg: SlamConfig, device,
-                   verbose: bool = False) -> List[FrontEnd]:
+                   verbose: bool = False, mesh=None) -> list:
     """Run B frame sequences (objects with .scan_xy and .odo_pose, and
     .sid where they carry one) in lockstep on `device`; a shorter
     sequence idles once it is exhausted. At most cfg.end_frame ticks.
     Loop closure runs per sequence in each FrontEnd's own back end.
-    Returns the B FrontEnds, their maps handed back (`finalize`)."""
-    bfe = BatchFrontEnd(cfg, len(sequences), device)
+    Returns the B FrontEnds, their maps handed back (`finalize`). With
+    `mesh` the rows are sharded over its "dp" ranks (every rank passes
+    all B sequences) and every rank returns all B rows: its own
+    FrontEnds and a `SequenceResult` for each row of another rank."""
+    bfe = BatchFrontEnd(cfg, len(sequences), device, mesh=mesh)
     n_frames = max(len(s) for s in sequences)
     for t in range(min(n_frames, cfg.end_frame)):
         live = [t < len(s) for s in sequences]
@@ -388,4 +442,4 @@ def run_slam_batch(sequences: Sequence[Sequence], cfg: SlamConfig, device,
         if verbose and (t + 1) % 50 == 0:
             print(f"[batch_runner] frame {t + 1}/{n_frames}")
     bfe.finalize()
-    return bfe.frontends
+    return bfe.gather()

@@ -171,7 +171,7 @@ def _backend_state(be, meta: dict, arrays: dict, dev: dict) -> None:
 
 
 def load_checkpoint(path: str, device, cfg: Optional[SlamConfig] = None,
-                    strict: bool = True) -> FrontEnd:
+                    strict: bool = True, mesh=None) -> FrontEnd:
     """Rebuild a FrontEnd on `device` from a checkpoint; resumes exactly.
 
     A `cfg` that is passed must match the stored config (`strict`, the
@@ -181,7 +181,8 @@ def load_checkpoint(path: str, device, cfg: Optional[SlamConfig] = None,
     (another build's manifest) are not compared. Pass strict=False to
     override knowingly. The front end is a `PipelinedFrontEnd` when
     the config's depth resolves above 0 on `device`: a drained
-    pipelined front end holds exactly a FrontEnd's state."""
+    pipelined front end holds exactly a FrontEnd's state. `mesh` shards
+    the back end's verification, as `FrontEnd(mesh=)` does."""
     arrays, meta = convert.read_checkpoint(path)
     if cfg is not None and strict:
         stored = convert.stored_config(meta)
@@ -199,4 +200,5 @@ def load_checkpoint(path: str, device, cfg: Optional[SlamConfig] = None,
                 )
                 + " (pass strict=False to override)"
             )
-    return convert.frontend_from_state(arrays, meta, device, cfg)
+    return convert.frontend_from_state(arrays, meta, device, cfg,
+                                       mesh=mesh)

@@ -63,7 +63,7 @@ from ndt_slam_tpu_torch.ndt.grid import (
     build_grid, lattice_anchor, moments_abs, window_grid_from_lattice,
 )
 from ndt_slam_tpu_torch.ndt.score import gauss_constants
-from ndt_slam_tpu_torch.ndt.solve import GATHER_ROWS_TODO, align
+from ndt_slam_tpu_torch.ndt.solve import align
 from ndt_slam_tpu_torch.pre.resample import resample_points_np
 
 
@@ -150,8 +150,9 @@ def _registration_step(cfg: SlamConfig, scan_xy, scan_mask, odo_pose,
     independent sequences at once, the JAX package's `vmap` of this
     step (the lockstep batch runner): one grid build keyed by (row,
     cell), one `GridStack` of B tables, the row axis of `align` with
-    row b against grid b, one fitness call for all rows, the fusion over
-    rows. Every field of the result then leads with [B]. A row whose
+    row b against grid b (the stacked window itself under the gather
+    engine), one fitness call for all rows, the fusion over rows. Every
+    field of the result then leads with [B]. A row whose
     masks are all False (an idle sequence) matches nothing, so its solve
     ends at the first iteration and holds no other row back."""
     # --- odometry prediction
@@ -232,9 +233,9 @@ def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
     gather = cfg.resolved_ndt_engine == "gather"
     grid_index = None
     if rows:
-        if gather:
-            raise NotImplementedError(GATHER_ROWS_TODO)
-        cgrid = compact_grids(grid, cfg.ndt_max_active_cells)
+        # row b against window b: the stacked grid itself, or its tables
+        cgrid = (grid if gather
+                 else compact_grids(grid, cfg.ndt_max_active_cells))
         grid_index = torch.arange(scan_xy.shape[0], dtype=torch.int32,
                                   device=scan_xy.device)
     elif gather:
@@ -285,9 +286,10 @@ def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
 
 class FrontEnd:
     """Host orchestration: the reference's FrontEnd::process +
-    ScanMatcher, on the device `device`."""
+    ScanMatcher, on the device `device`; `mesh` shards the loop-closure
+    verification over its "dp" ranks (`graph/backend.GraphBackend`)."""
 
-    def __init__(self, cfg: SlamConfig, device):
+    def __init__(self, cfg: SlamConfig, device, mesh=None):
         cfg.resolved_ndt_engine  # raises for an engine the port lacks
         self.cfg = cfg
         self.device = torch.device(device)
@@ -332,7 +334,7 @@ class FrontEnd:
         self._map_rewritten = False
         self.backend = None
         if cfg.loop_enable:
-            self.backend = GraphBackend(cfg, self.device)
+            self.backend = GraphBackend(cfg, self.device, mesh=mesh)
             self.backend.mark = self.timer.mark
 
     def warmup(self):

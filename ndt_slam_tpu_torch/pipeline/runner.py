@@ -1,7 +1,7 @@
-"""Host loop over a log (port of `ndt_slam_tpu.pipeline.runner.run_slam`,
-without the mesh option): feed frames into the FrontEnd, or the
-pipelined front end when the config's depth resolves above 0 on the
-device, save and resume checkpoints, render the map every few frames,
+"""Host loop over a log (port of `ndt_slam_tpu.pipeline.runner.run_slam`):
+feed frames into the FrontEnd, or the pipelined front end when the
+config's depth resolves above 0 on the device, save and resume
+checkpoints, render the map every few frames,
 optionally under a torch.profiler session, then apply a correction the
 back end still holds and write the pose files, the global and
 per-submap PCD maps and the map picture."""
@@ -42,6 +42,7 @@ def run_slam(
     viz_every: int = 0,
     viz_final: bool = False,
     profile_dir: Optional[str] = None,
+    mesh=None,
 ) -> FrontEnd:
     """Run the pipeline on `device` over frames (objects with .odo_pose
     and .scan_xy, e.g. io.carmen.LogFrame): stop after cfg.end_frame
@@ -63,19 +64,22 @@ def run_slam(
     stamped with its `wall_s` when it resolves, and the front end is
     drained before a checkpoint and at the end. With `profile_dir` the
     frame loop runs under a torch.profiler session (CUDA activity on a
-    CUDA device) written to `profile_dir/trace.json` as a Chrome trace."""
+    CUDA device) written to `profile_dir/trace.json` as a Chrome trace.
+    With `mesh` the loop-closure verification is sharded over its "dp"
+    ranks (`FrontEnd(mesh=)`); every rank of the mesh runs this loop
+    over the same frames."""
     device = torch.device(device)
     resume_skip = 0
     if resume and checkpoint_path and os.path.exists(checkpoint_path):
-        fe = load_checkpoint(checkpoint_path, device, cfg)
+        fe = load_checkpoint(checkpoint_path, device, cfg, mesh=mesh)
         resume_skip = fe.cnt
         if verbose:
             print(f"[runner] resumed from {checkpoint_path} "
                   f"(frames processed: {resume_skip})")
     elif cfg.resolved_pipeline_depth(device.type) > 0:
-        fe = PipelinedFrontEnd(cfg, device)
+        fe = PipelinedFrontEnd(cfg, device, mesh=mesh)
     else:
-        fe = FrontEnd(cfg, device)
+        fe = FrontEnd(cfg, device, mesh=mesh)
     pipelined = isinstance(fe, PipelinedFrontEnd)
     # truncating on resume would lose the records before the checkpoint
     jl = JsonlWriter(metrics_path, append=resume_skip > 0)

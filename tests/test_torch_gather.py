@@ -9,8 +9,8 @@ over and on the port's own; the line-search scores to rtol 1e-5
 against JAX's `vmap`; `align` on the gather engine against JAX's; and
 the first 15 office_loop frames of `SlamConfig.small(ndt_engine=
 "gather")` through the port's runner against JAX's front end, frame by
-frame within 0.05 m and 0.3 deg. The row axis the gather engine lacks
-in the port (the verifier, the lockstep runner) raises.
+frame within 0.05 m and 0.3 deg; its row axis runs (held to JAX's
+`vmap`s in tests/test_torch_gather_rows.py).
 """
 
 import os
@@ -185,6 +185,9 @@ def test_gather_slice_matches_jax_frame_by_frame():
 
 
 def test_gather_engine_resolves_and_the_row_axis_raises(scene):
+    """The engine resolves; its row axis runs where the JAX package vmaps
+    (align over rows on a stacked window, the verifier, the lockstep
+    runner) and raises only for rows without a grid index."""
     cfg = SlamConfig.small(ndt_engine="gather")
     assert cfg.resolved_ndt_engine == "gather"
     assert SlamConfig.small().resolved_ndt_engine == "compact"
@@ -192,14 +195,25 @@ def test_gather_engine_resolves_and_the_row_axis_raises(scene):
         SlamConfig.small(ndt_engine="dense").resolved_ndt_engine
     src = scene["src"]
     grid = scene["grids"]["port grid"]
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(ValueError, match="grid index"):
         align(torch.zeros(2, 3), src.xy, src.mask, grid, scene["d1"],
-              scene["d2"], grid_index=torch.zeros(2, dtype=torch.int32))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        verify_candidates(cfg, src.xy, src.mask, src.xy[None], src.mask[None],
-                          torch.zeros(1, 3))
-    with pytest.raises(NotImplementedError, match="item 14"):
-        BatchFrontEnd(cfg, 2, CPU)
+              scene["d2"])
+    stacked = grid._replace(**{f: torch.stack([getattr(grid, f)] * 2)
+                               for f in ("origin", "mean", "inv_cov",
+                                         "valid")})
+    rows = align(torch.zeros(2, 3), src.xy, src.mask, stacked, scene["d1"],
+                 scene["d2"], grid_index=torch.arange(2, dtype=torch.int32))
+    one = align(torch.zeros(3), src.xy, src.mask, grid, scene["d1"],
+                scene["d2"])
+    assert rows.pose_rad.shape == (2, 3)
+    assert torch.equal(rows.pose_rad[0], rows.pose_rad[1])
+    np.testing.assert_allclose(rows.pose_rad[0].numpy(),
+                               one.pose_rad.numpy(), atol=1e-4)
+    out = verify_candidates(cfg, src.xy, src.mask, src.xy[None],
+                            src.mask[None], torch.zeros(1, 3))
+    assert out.accepted.shape == (1,)
+    assert float(out.rel_pose_rad.abs().max()) < 1e-3   # itself, at 0
+    assert len(BatchFrontEnd(cfg, 2, CPU).frontends) == 2
     # the compact engine's row axis is untouched
     gs = stack_grids([compact_grid(grid, 512)] * 2)
     rows = align(torch.zeros(2, 3), src.xy, src.mask, gs, scene["d1"],
