@@ -118,8 +118,32 @@ Phases, one line each (any failure exits non-zero):
      launches and the host copies gloo needs on each rank; (c) in those
      two ranks `make_sharded_verify` on [verify]'s inputs against the
      one-device verify (accepted equal) and `make_sharded_optimize` on
-     [loop]'s final graph against `optimize_pcg` (5e-4 m). Launch counts
-     are set to 0 just before each run and read just after.
+     [loop]'s final graph against `optimize_pcg` (5e-4 m); (d) in the same
+     two ranks, at capacities where every shard holds
+     live points (512 source slots, a 1024-slot target, 256 cells),
+     DIST_SPLIT_FRAMES simulated frames: live points in both ranks'
+     source and target shards from the second frame on (counted on the
+     rank side), both ranks bitwise equal, and each held to one device's
+     FrontEnd on the card: the first registration within 5e-5 m, frames
+     0-9 within 5e-4 m, the later frames within 5e-4 m or, where a
+     bistable frame parts them, the ATE band. Launch counts are set to 0
+     just before each run and read just after;
+ 12. [register] cli/profile_register_torch.py in this process at its
+     default operating point (REGISTER_REPS calls a row), its table
+     printed: every row on the card, each kernel's wrapper launched;
+ 13. [entry] `__graft_entry_torch__.entry("cuda")`'s per-frame step
+     against the same step on entry("cpu")'s tensors (the plain twins):
+     successful and iterations equal, poses within 1e-4 m and 1e-4 rad,
+     cost to rtol 1e-4, map-frame points within 2e-4 m; then
+     `dryrun_multichip(2, "cuda")`: the sharded frame step, sequential
+     step, PCG and verify on two ranks sharing the card, finite and
+     bitwise equal;
+ 14. [tools] cli/eval_ate_torch.py in a fresh interpreter on [main]'s
+     poses_full.txt gives [main]'s ATE to 1e-9 m, the JAX-free fixture
+     generator's first 5 frames equal the committed office_loop.clf
+     lines, and [main]'s map.pcd reads back through `io.pcd.load_pcd`.
+Each of 11 (d), 12 and 13 sets the launch counts to 0 just before its
+run and reads them just after; the kernels line carries them.
 The last line is the JSON result; the kernels' JSON line and the
 card's name and power limit come just before it.
 """
@@ -174,8 +198,20 @@ PIPELINE_WRAPPERS = {**VARIANT_WRAPPERS,
 PIPE_DEPTH = 8             # frames in flight of the [pipeline] runs
 GATHER_FRAMES = 150        # office_loop frames of the [gather] run
 GATHER_TICKS = 100         # lockstep ticks of the [gather] batch run
-DIST_FRAMES = 150          # office_loop frames of the [dist] two-rank run
+DIST_FRAMES = 50           # office_loop frames of the [dist] two-rank run
 DIST_PGO_TOL_M = 5e-4      # [dist] sharded PCG against optimize_pcg, m
+# [dist] (d): two ranks at capacities where every shard holds live points
+# (512 source slots, a 1024-slot target, 256 cells) over simulated frames
+DIST_SPLIT_FRAMES = 30
+DIST_SPLIT_KW = dict(end_frame=10_000, ndt_trans_eps=1e-4,
+                     ndt_max_iterations=80, ndt_max_active_cells=256,
+                     max_local_map_points=1024)
+DIST_REGISTER_TOL_M = 5e-5   # the first registration against one device, m
+DIST_FRAMES_TOL_M = 5e-4     # every one of the first 10 frames, and after, m
+REGISTER_REPS = 30           # timed calls a [register] row
+ENTRY_TOL = 1e-4             # [entry] card against CPU: m, rad, cost rtol
+ENTRY_XY_TOL = 2e-4          # [entry] map-frame points, m
+TOOLS_ATE_TOL_M = 1e-9       # [tools] eval_ate_torch against [main]'s ATE
 
 
 def _require(ok, what):
@@ -684,10 +720,13 @@ def _scenes(device, cfg, frames):
     return {"synthetic": syn, "office_loop": real}
 
 
-def _run_main_path(tag, frames, gt, cfg, device):
+def _run_main_path(tag, frames, gt, cfg, device, keep=None):
     """One whole run through `run_slam` with the launch counts set to 0
     just before it and read just after; checks the outputs, the ATE and
-    the accept rate. Returns (front end, launch counts)."""
+    the accept rate; copies poses_full.txt and map.pcd into `keep` when
+    given. Returns (front end, launch counts)."""
+    import shutil
+
     import torch
     from ndt_slam_tpu_torch.metrics import ate_rmse
     from ndt_slam_tpu_torch.ndt import kernels
@@ -703,6 +742,9 @@ def _run_main_path(tag, frames, gt, cfg, device):
                   "submap_000.pcd"):
             _require(f in written and os.path.getsize(os.path.join(out, f)),
                      f"{tag}: output {f} written")
+        if keep is not None:
+            for f in ("poses_full.txt", "map.pcd"):
+                shutil.copy(os.path.join(out, f), os.path.join(keep, f))
     n = len(fe.pose_history)
     _require(n == min(len(frames), cfg.end_frame),
              f"{tag}: {n} of {len(frames)} frames run")
@@ -2280,9 +2322,9 @@ def _check_gather_rows(gcfg, vin, device):
 
 def _check_dist(frames, gt, full, fe_full, vin, office, device):
     """[dist] (see the module docstring): (a) world size 1 on nccl in
-    this process, (b) and (c) in two spawned ranks sharing the card over
-    gloo. Returns (launches of (a) by wrapper, each rank's launches of
-    (b) by wrapper)."""
+    this process, (b), (c) and (d) in two spawned ranks sharing the card
+    over gloo. Returns (launches of (a) by wrapper, each rank's launches
+    of (b) by wrapper, each rank's launches of (d) by wrapper)."""
     import torch
     from ndt_slam_tpu_torch.graph.pose_graph import optimize_pcg
     from ndt_slam_tpu_torch.graph import verify_candidates, pack_verify_out
@@ -2291,6 +2333,7 @@ def _check_dist(frames, gt, full, fe_full, vin, office, device):
     from ndt_slam_tpu_torch.parallel import dist as pdist
     from ndt_slam_tpu_torch.parallel import jobs
     from ndt_slam_tpu_torch.pipeline.dist_runner import run_slam_distributed
+    from ndt_slam_tpu_torch.pipeline.frontend import FrontEnd
 
     main = fe_full.get_poses()
     # (a) one rank on nccl
@@ -2334,14 +2377,24 @@ def _check_dist(frames, gt, full, fe_full, vin, office, device):
     ver = {k: v.cpu().numpy() for k, v in ver.items()}
     graph = dict(zip(("poses", "node_mask", "idx_i", "idx_j", "z", "omega",
                       "edge_mask"), (t.numpy() for t in office)))
+    split_cfg, split_frames = _dist_split_inputs()
     t0 = time.perf_counter()
-    ranks = pdist.spawn(jobs.run, 2, [
+    handle = pdist.start(jobs.run, 2, [
         ("slam", (full, frames[:DIST_FRAMES], "cuda"), {}),
         ("verify", (full, ver, "cuda"), {}),
         ("optimize", (graph, "cuda"), {}),
+        ("slam_halves", (split_cfg, split_frames, "cuda"), {}),
     ], backend="gloo", device="cuda")
+    try:
+        # (d)'s one-device run, while the ranks start
+        fe_one = FrontEnd(split_cfg, device)
+        for fr in split_frames:
+            fe_one.process(fr.scan_xy, fr.odo_pose, sid=fr.sid)
+        ranks = handle.result()
+    finally:
+        handle.close()
     spawn_s = time.perf_counter() - t0
-    (b0, v0, (o0, _)), (b1, v1, (o1, _)) = ranks
+    (b0, v0, (o0, _), h0), (b1, v1, (o1, _), h1) = ranks
     m = DIST_FRAMES
     gap, gap_deg = _trajectory_gap(b0["poses"], main[:m])
     for r, b in enumerate((b0, b1)):
@@ -2384,7 +2437,207 @@ def _check_dist(frames, gt, full, fe_full, vin, office, device):
              "[dist] (c) sharded verify: accepted equal")
     _require(ogap <= DIST_PGO_TOL_M,
              f"[dist] (c) sharded PCG within {DIST_PGO_TOL_M} m")
-    return wrappers_a, [b0["wrappers"], b1["wrappers"]]
+    wrappers_d = _check_dist_split(h0, h1, fe_one, split_frames)
+    return wrappers_a, [b0["wrappers"], b1["wrappers"]], wrappers_d
+
+
+def _dist_split_inputs():
+    """[dist] (d)'s config and simulated frames."""
+    from ndt_slam_tpu_torch.config import SlamConfig
+    from ndt_slam_tpu_torch.io.simulate import simulate_sequence
+
+    return (SlamConfig.small(**DIST_SPLIT_KW),
+            simulate_sequence(n_frames=DIST_SPLIT_FRAMES, beams=181, seed=3))
+
+
+def _check_dist_split(r0, r1, fe, frames):
+    """[dist] (d) (see the module docstring): the two ranks' results of
+    `jobs.slam_halves` against one device's FrontEnd `fe` over the same
+    frames. Returns each rank's launches by wrapper."""
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+
+    one = fe.get_poses()
+    m = DIST_SPLIT_FRAMES
+    for r, b in enumerate((r0, r1)):
+        live = b["live"]
+        print(f"[dist] (d) rank {r} of 2, gloo on one card: {m} simulated "
+              f"frames in {b['seconds']:.2f} s; live points of its source "
+              f"shard (256 slots) from frame 1 on: min {int(live[:, 0].min())}"
+              f", max {int(live[:, 0].max())}; of its target shard (512 "
+              f"slots): min {int(live[:, 1].min())}, max "
+              f"{int(live[:, 1].max())}; launches by wrapper {b['wrappers']};"
+              f" host copies {b['copies']}", flush=True)
+        _require(live.shape == (m - 1, 2) and (live > 0).all(),
+                 f"[dist] (d) rank {r}: its source and target shards hold "
+                 f"live points from the second frame on")
+        for w in ("ndt_score_grad_hess", "ndt_scores", "nn_sq_dists"):
+            _require(b["wrappers"][w] > 0, f"[dist] (d) rank {r}: {w} "
+                                           f"launched")
+    _require(r0["poses"].shape == (m, 3) and np.isfinite(r0["poses"]).all(),
+             f"[dist] (d) {m} finite poses")
+    _require(r0["poses"].tobytes() == r1["poses"].tobytes()
+             and r0["covs"].tobytes() == r1["covs"].tobytes()
+             and r0["accept"] == r1["accept"],
+             "[dist] (d) both ranks' trajectories bitwise equal")
+    gap = np.hypot(r0["poses"][:, 0] - one[:, 0], r0["poses"][:, 1] - one[:, 1])
+    _, gap_deg = _trajectory_gap(r0["poses"], one)
+    true = np.asarray([fr.true_pose for fr in frames])
+    ate, ate_one = ate_rmse(r0["poses"], true), ate_rmse(one, true)
+    print(f"[dist] (d) both ranks bitwise equal; against one device on the "
+          f"card: the first registration (frame 1) {gap[1]:.4g} m, frames "
+          f"0-9 at most {gap[:10].max():.4g} m, frames 10-{m - 1} at most "
+          f"{gap[10:].max():.4g} m ({gap_deg:.4g} deg over all); ATE against "
+          f"the simulator's truth {ate:.6f} m (one device {ate_one:.6f} m); "
+          f"accept equal {r0['accept'] == [bool(x.get('successful')) for x in fe.metrics]}"
+          f" ({_nvidia_smi()})", flush=True)
+    _require(gap[1] <= DIST_REGISTER_TOL_M,
+             f"[dist] (d) the first registration within "
+             f"{DIST_REGISTER_TOL_M} m of one device")
+    _require(gap[:10].max() <= DIST_FRAMES_TOL_M,
+             f"[dist] (d) frames 0-9 within {DIST_FRAMES_TOL_M} m of one "
+             f"device")
+    if gap[10:].max() > DIST_FRAMES_TOL_M:
+        # a bistable frame parts two summation orders (ROADMAP queue 3):
+        # the rest is held to the ATE band
+        print(f"[dist] (d) frames 10-{m - 1} part by more than "
+              f"{DIST_FRAMES_TOL_M} m; held to the ATE band instead",
+              flush=True)
+        _require(abs(ate - ate_one) <= BATCH_ATE_SLACK and ate < ATE_BOUND,
+                 f"[dist] (d) ATE {ate} within {BATCH_ATE_SLACK} m of one "
+                 f"device's {ate_one}")
+    return [r0["wrappers"], r1["wrappers"]]
+
+
+def _load_file(name, path):
+    """A module from a file of this checkout (a CLI or a root file)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _check_register():
+    """[register] cli/profile_register_torch.py in this process at its
+    default operating point, the launch counts set to 0 just before and
+    read just after: every row on the card, each kernel launched.
+    Returns (launches by wrapper, the rows)."""
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    prof = _load_file("profile_register_torch",
+                      os.path.join(ROOT, "cli", "profile_register_torch.py"))
+    t0 = time.perf_counter()
+    kernels.reset_launch_counts()
+    header, rows = prof.profile_rows("cuda", REGISTER_REPS)
+    wrappers = kernels.wrapper_launch_counts()
+    for line in prof.format_table(header, rows).splitlines():
+        print(f"[register] {line}")
+    print(f"[register] {time.perf_counter() - t0:.1f} s; launches by "
+          f"wrapper {wrappers}", flush=True)
+    for r in rows:
+        _require(r["device"].startswith("cuda") and np.isfinite(r["us"])
+                 and r["us"] > 0, f"[register] {r['name']} ran on the card")
+    for w in ("ndt_score_grad_hess", "ndt_scores", "fitness_score"):
+        _require(wrappers[w] > 0, f"[register] {w} launched")
+    return wrappers, rows
+
+
+def _check_entry():
+    """[entry] `__graft_entry_torch__.entry("cuda")`'s step against the
+    same step on `entry("cpu")`'s tensors (the plain twins), launch
+    counts set to 0 just before the card's call and read after it; then
+    `dryrun_multichip(2, "cuda")`. Returns (launches by wrapper of the
+    step, each dry-run rank's)."""
+    import torch
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    graft = _load_file("graft_entry_torch",
+                       os.path.join(ROOT, "__graft_entry_torch__.py"))
+    fn, args = graft.entry("cuda")
+    _, cpu_args = graft.entry("cpu")
+    kernels.reset_launch_counts()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    wrappers = kernels.wrapper_launch_counts()
+    ref = fn(*cpu_args)
+    got = {k: getattr(out, k).cpu().numpy() for k in out._fields}
+    want = {k: getattr(ref, k).numpy() for k in ref._fields}
+    dpose = max(float(np.abs(got[k][:2] - want[k][:2]).max())
+                for k in ("est_pose", "fused_pose"))
+    drad = max(float(np.abs(np.deg2rad(got[k][2] - want[k][2])))
+               for k in ("est_pose", "fused_pose"))
+    dcost = abs(float(got["cost"]) - float(want["cost"])) / abs(
+        float(want["cost"]))
+    dxy = float(np.abs(got["global_xy"] - want["global_xy"]).max())
+    print(f"[entry] entry('cuda') against entry('cpu'), 541 of 2048 scan "
+          f"slots, 8192-slot target, 96 x 96 window: successful "
+          f"{bool(got['successful'])} / {bool(want['successful'])}, "
+          f"iterations {int(got['iterations'])} / {int(want['iterations'])}"
+          f", poses within {dpose:.3g} m and {drad:.3g} rad, cost "
+          f"{float(got['cost']):.6g} (rel {dcost:.3g}), map-frame points "
+          f"within {dxy:.3g} m; launches by wrapper {wrappers}", flush=True)
+    _require(bool(got["successful"]) == bool(want["successful"])
+             and int(got["iterations"]) == int(want["iterations"]),
+             "[entry] successful and iterations equal")
+    _require(dpose <= ENTRY_TOL and drad <= ENTRY_TOL
+             and dcost <= ENTRY_TOL and dxy <= ENTRY_XY_TOL,
+             f"[entry] poses within {ENTRY_TOL} m / rad, cost to rtol "
+             f"{ENTRY_TOL}, points within {ENTRY_XY_TOL} m")
+    for w in ("ndt_score_grad_hess", "ndt_scores", "fitness_score"):
+        _require(wrappers[w] > 0, f"[entry] {w} launched")
+    t0 = time.perf_counter()
+    ranks = graft.dryrun_multichip(2, "cuda")
+    print(f"[entry] dryrun_multichip(2, 'cuda'): mesh (dp, pt) = "
+          f"{ranks[0]['mesh']}, frame step, sequential step, sharded PCG "
+          f"and sharded verify finite and bitwise equal on both ranks in "
+          f"{time.perf_counter() - t0:.1f} s; fused pose "
+          f"{ranks[0]['sequential_step'].fused_pose.tolist()}; launches by "
+          f"wrapper a rank {[r['wrappers'] for r in ranks]}", flush=True)
+    for r in ranks:
+        for w in ("ndt_score_grad_hess", "ndt_scores", "nn_sq_dists"):
+            _require(r["wrappers"][w] > 0, f"[entry] dry run: {w} launched")
+    return wrappers, [r["wrappers"] for r in ranks]
+
+
+def _check_tools(kept, fe_full, gt):
+    """[tools] the JAX-free tools on the card's machine: eval_ate_torch
+    (a fresh interpreter) on [main]'s poses_full.txt, the fixture
+    generator's first frames, [main]'s map.pcd read back."""
+    from ndt_slam_tpu_torch.io import pcd
+    from ndt_slam_tpu_torch.metrics import ate_rmse
+
+    poses = fe_full.get_poses()
+    ate = ate_rmse(poses, gt[:len(poses)])
+    run = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "cli", "eval_ate_torch.py"),
+         os.path.join(kept, "poses_full.txt"), GT],
+        capture_output=True, text=True, check=True, timeout=120)
+    line = json.loads(run.stdout.strip().splitlines()[-1])
+    gen = _load_file("make_carmen_fixture_torch",
+                     os.path.join(ROOT, "cli", "make_carmen_fixture_torch.py"))
+    lines, _ = gen.generate(n_frames=5)
+    with open(LOG) as f:
+        f.readline()   # the comment header
+        committed = [f.readline().rstrip("\n") for _ in range(5)]
+    back = pcd.load_pcd(os.path.join(kept, "map.pcd"))
+    gm = fe_full.pcmap.global_map()
+    same_map = back.shape == gm.shape and np.allclose(back, gm, rtol=1e-5,
+                                                      atol=1e-6)
+    print(f"[tools] eval_ate_torch on [main]'s poses_full.txt: {line}; "
+          f"[main]'s ATE {ate!r} m (gap {abs(line['ate_rmse_m'] - ate):.3g})"
+          f"; make_carmen_fixture_torch.generate(n_frames=5) equals the "
+          f"committed office_loop.clf lines: {lines == committed}; [main]'s "
+          f"map.pcd ({pcd.writer()} writer) read back: {len(back)} points, "
+          f"the map's within the format: {same_map}", flush=True)
+    _require(line["frames"] == len(poses)
+             and abs(line["ate_rmse_m"] - ate) <= TOOLS_ATE_TOL_M,
+             f"[tools] eval_ate_torch gives [main]'s ATE to "
+             f"{TOOLS_ATE_TOL_M} m")
+    _require(lines == committed,
+             "[tools] the fixture generator's first 5 frames equal the "
+             "committed office_loop.clf")
+    _require(same_map, "[tools] load_pcd reads [main]'s map.pcd back")
 
 
 def _row_launches(name, wrappers):
@@ -2462,7 +2715,9 @@ def main() -> int:
 
     # 4. the main paths at the default capacities, every frame: the full
     # rebuild (what -1 resolves to on cuda) and the incremental lattice
-    fe_full, counts_full = _run_main_path("main", frames, gt, full, device)
+    kept = tempfile.TemporaryDirectory()    # [main]'s outputs for [tools]
+    fe_full, counts_full = _run_main_path("main", frames, gt, full, device,
+                                          keep=kept.name)
     fe, counts = _run_main_path("main-inc", frames, gt, inc, device)
     _require(fe.incremental_grid and fe.n_grid_fallbacks == 0,
              "[main-inc] ran on the lattice and no window escaped it")
@@ -2596,13 +2851,28 @@ def main() -> int:
     lap("gather")
 
     # 11. the multi-rank runners
-    dist_a, dist_b = _check_dist(frames, gt, full, fe_full, vin, office,
-                                 device)
+    dist_a, dist_b, dist_d = _check_dist(frames, gt, full, fe_full, vin,
+                                         office, device)
     for r in rows:
         r["launches_dist"] = _row_launches(r["name"], dist_a)
         r["launches_dist_ranks"] = [_row_launches(r["name"], w)
                                     for w in dist_b]
     lap("dist")
+
+    # 12. the register profile, 13. the entry points, 14. the tools
+    reg, _ = _check_register()
+    lap("register")
+    entry, dryrun = _check_entry()
+    lap("entry")
+    _check_tools(kept.name, fe_full, gt)
+    kept.cleanup()
+    lap("tools")
+    for r in rows:
+        r["launches_dist_split"] = [_row_launches(r["name"], w)
+                                    for w in dist_d]
+        r["launches_register"] = _row_launches(r["name"], reg)
+        r["launches_entry"] = _row_launches(r["name"], entry)
+        r["launches_dryrun"] = [_row_launches(r["name"], w) for w in dryrun]
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here", flush=True)

@@ -23,7 +23,9 @@ both against the ground-truth rows of the processed frames (from
 and fails when there is no CUDA device; pass --device cpu to run the
 plain PyTorch twins instead of the kernels. The incremental moment
 lattice is switched through --config ({"ndt_incremental_grid": 1} or
-0); summary.json says which grid path and which resampler ran. The
+0); summary.json says which grid path and which resampler ran, and
+which PCD writer wrote the maps (pcd_writer: the native one of
+csrc/libndtslam.so where it loads, as the JAX package's, else numpy). The
 pipelined front end too ({"pipeline_depth": 8}: frames in flight
 before their outputs are fetched in one copy; -1 resolves to
 config.PIPELINE_AUTO_DEPTH_ON_CUDA on cuda and to 0 on the CPU);
@@ -146,7 +148,7 @@ def _run(args, device, rt):
     import torch
 
     from ndt_slam_tpu_torch.config import SlamConfig
-    from ndt_slam_tpu_torch.io import native
+    from ndt_slam_tpu_torch.io import native, pcd
     from ndt_slam_tpu_torch.io.carmen import read_carmen_gt, read_carmen_log
     from ndt_slam_tpu_torch.io.simulate import simulate_sequence
     from ndt_slam_tpu_torch.io.tsukuba import read_tsukuba_log
@@ -216,6 +218,7 @@ def _run(args, device, rt):
         "native_library": native.status(),
         "log_reader": reader,
         "resampler": fe.resampler,
+        "pcd_writer": pcd.writer(),
         "wall_s": round(time.perf_counter() - t0, 2),
         "accept_rate": float(np.mean([
             1.0 if m.get("successful") else 0.0 for m in fe.metrics
@@ -264,6 +267,7 @@ def _run_distributed(args, cfg, device, rt, frames, true_poses, mesh):
     writes the outputs and summary.json."""
     import numpy as np
 
+    from ndt_slam_tpu_torch.io import pcd
     from ndt_slam_tpu_torch.metrics import ate_rmse
     from ndt_slam_tpu_torch.pipeline.dist_runner import run_slam_distributed
 
@@ -287,6 +291,7 @@ def _run_distributed(args, cfg, device, rt, frames, true_poses, mesh):
         "processes": rt.world_size,
         "backend": rt.backend,
         "device": str(device),
+        "pcd_writer": pcd.writer(),
         "accept_rate": float(np.mean([
             1.0 if m.get("successful") else 0.0 for m in fe.metrics
         ])) if fe.metrics else 0.0,

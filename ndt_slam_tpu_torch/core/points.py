@@ -48,6 +48,12 @@ def pad_points(xy: np.ndarray, capacity: int, device) -> PointBuffer:
     return PointBuffer(dev_xy, mask)
 
 
+def sanitize(buf: PointBuffer) -> PointBuffer:
+    """Force padded slots to the sentinel coordinate."""
+    xy = torch.where(buf.mask[..., None], buf.xy, PAD_COORD)
+    return PointBuffer(xy, buf.mask)
+
+
 def compact(buf: PointBuffer) -> PointBuffer:
     """Move valid points to the front (stable), padding the tail; row by
     row for [B,N] buffers."""
@@ -71,3 +77,8 @@ def concat_buffers(a: PointBuffer, b: PointBuffer,
     mask = torch.cat([a.mask, b.mask], dim=0)
     c = compact(PointBuffer(xy, mask))
     return PointBuffer(c.xy[:capacity], c.mask[:capacity])
+
+
+def from_host_list(points, capacity: int, device) -> PointBuffer:
+    """`pad_points` of a host list (or array) of [x, y] points."""
+    return pad_points(np.asarray(points, dtype=np.float32), capacity, device)

@@ -15,6 +15,14 @@ from ndt_slam_tpu_torch.core.angles import (
 )
 
 
+def rot2(th_deg):
+    """2x2 rotation matrix (batched over leading dims of th_deg)."""
+    c, s = _cs(th_deg)
+    return torch.stack(
+        [torch.stack([c, -s], dim=-1), torch.stack([s, c], dim=-1)], dim=-2
+    )
+
+
 def _cs(th_deg):
     a = deg2rad(th_deg)
     return torch.cos(a), torch.sin(a)
@@ -56,6 +64,14 @@ def global_points(pose, pts):
     return torch.stack([x, y], dim=-1)
 
 
+def relative_points(pose, pts):
+    """Transform world points [N,2] into the local frame of `pose`."""
+    c, s = _cs(pose[..., 2:3])
+    dx = pts[..., 0] - pose[..., 0:1]
+    dy = pts[..., 1] - pose[..., 1:2]
+    return torch.stack([c * dx + s * dy, -s * dx + c * dy], dim=-1)
+
+
 def pose_deg_to_rad(pose_deg):
     """[tx, ty, th_deg] -> [tx, ty, th_rad]."""
     return torch.stack(
@@ -70,3 +86,8 @@ def pose_rad_to_deg(pose_rad):
          rad2deg(wrap_rad(pose_rad[..., 2]))],
         dim=-1,
     )
+
+
+def distance(pose):
+    """Translation norm."""
+    return torch.sqrt(pose[..., 0] ** 2 + pose[..., 1] ** 2)

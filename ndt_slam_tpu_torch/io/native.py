@@ -163,9 +163,9 @@ def read_carmen_log(
 
 
 def save_pcd(path: str, xy: np.ndarray) -> None:
-    """Native ASCII PCD writer: the header and layout of
-    `io.pcd.save_pcd`, with 6 significant digits a coordinate where that
-    one writes 6 decimals (the runner writes its maps with that one)."""
+    """Native ASCII PCD writer: the header and layout of the numpy
+    writer, with 6 significant digits a coordinate where that one writes
+    6 decimals (`io.pcd.save_pcd` takes this one where it loads)."""
     lib = _lib()
     xy = np.ascontiguousarray(xy, dtype=np.float32).reshape(-1, 2)
     rc = lib.ndt_write_pcd(path.encode(), _f32p(xy), xy.shape[0])

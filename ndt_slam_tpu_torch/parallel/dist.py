@@ -136,6 +136,22 @@ def is_coordinator() -> bool:
     return not dist.is_initialized() or dist.get_rank() == 0
 
 
+def local_device_count() -> int:
+    """Devices this host gives the ranks: `torch.cuda.device_count()`,
+    or 1 on a host without a card (the CPU). One process holds one
+    device, so this is `jax.local_device_count()` of the JAX package."""
+    return torch.cuda.device_count() if torch.cuda.is_available() else 1
+
+
+def global_device_count() -> int:
+    """Devices over all ranks: the world size of the initialised group
+    (one device a rank), else `local_device_count()`; the JAX package's
+    `jax.device_count()`."""
+    if dist.is_initialized():
+        return dist.get_world_size()
+    return local_device_count()
+
+
 def _comm_device() -> torch.device:
     """Where tensors of the world group travel: the rank's card on
     nccl, the host on gloo."""

@@ -114,6 +114,55 @@ def slam(cfg: SlamConfig, frames, device="cpu") -> dict:
             "seconds": time.perf_counter() - t0}
 
 
+def slam_halves(cfg: SlamConfig, frames, device="cpu") -> dict:
+    """The loop of `run_slam_distributed` (synchronous, the frames
+    broadcast by the coordinator) on a `DistFrontEnd` whose sharded step
+    also counts the live points of this rank's source and target shards
+    each frame, the launch counts and host copies set to 0 just before:
+    this rank's poses, covariances and accept flags, the live counts
+    [frames, 2] (source, target), the launches by wrapper, the host
+    copies and the seconds the run took."""
+    import time
+
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.parallel.dist import (
+        broadcast_frame, broadcast_scalar, copy_counts, is_coordinator,
+        reset_copy_counts,
+    )
+    from ndt_slam_tpu_torch.pipeline.dist_runner import DistFrontEnd
+
+    fe = DistFrontEnd(cfg, device)
+    step, live = fe._seq_step, []
+
+    def counted(src_xy, src_mask, odo, prev_odo, last_pose, last_cov,
+                tgt_xy, tgt_mask, scan_xy, scan_mask):
+        live.append(torch.stack([src_mask.sum(), tgt_mask.sum()]))
+        return step(src_xy, src_mask, odo, prev_odo, last_pose, last_cov,
+                    tgt_xy, tgt_mask, scan_xy, scan_mask)
+
+    fe._seq_step = counted
+    kernels.reset_launch_counts()
+    reset_copy_counts()
+    t0 = time.perf_counter()
+    n = int(broadcast_scalar(len(frames) if is_coordinator() else 0))
+    for t in range(n):
+        fr = frames[t] if is_coordinator() else None
+        scan, odo = broadcast_frame(None if fr is None else fr.scan_xy,
+                                    None if fr is None else fr.odo_pose,
+                                    4 * cfg.max_scan_points)
+        sid = int(broadcast_scalar(fr.sid if fr is not None else 0))
+        fe.process(scan, odo, sid=sid)
+    fe.finalize()
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return {"poses": fe.get_poses(), "covs": np.stack(fe.cov_history),
+            "accept": [bool(m.get("successful")) for m in fe.metrics],
+            "live": torch.stack(live).cpu().numpy(),
+            "wrappers": kernels.wrapper_launch_counts(),
+            "copies": copy_counts(),
+            "seconds": time.perf_counter() - t0}
+
+
 def broadcast(frame, capacity: int):
     """One `broadcast_frame` of `frame` from the coordinator: the scan
     and odometry pose this rank received."""
@@ -177,6 +226,67 @@ def lockstep(cfg: SlamConfig, sequences, device="cpu", dp: int = 2):
     fes = run_slam_batch(sequences, cfg, device, mesh=mesh)
     rows = axis(mesh, "dp").shard(torch.arange(len(sequences)))
     return [fe.get_poses() for fe in fes], rows.tolist()
+
+
+def dryrun(cfg: SlamConfig, vcfg: SlamConfig, inp: dict, graph: dict,
+           device="cpu") -> dict:
+    """The multi-device dry run of `__graft_entry_torch__.py` on every
+    rank of the group, on a `balanced_factors(world)` (dp, pt) mesh, the
+    launch counts set to 0 just before: the sharded frame step over dp
+    frames (src, tgt broadcast to [dp, ...] and sharded ("dp", "pt")),
+    the sharded sequential step (src and tgt sharded over "pt", the raw
+    scan replicated), and over every rank on "dp" the sharded PCG of
+    `graph` (`PoseGraph` fields as numpy arrays) and the sharded verify
+    (`vcfg`) of src against one copy of tgt a rank. Returns this rank's
+    outputs as numpy and its launches by wrapper."""
+    import torch.distributed as dist
+
+    from ndt_slam_tpu_torch.graph.loop_closure import (
+        make_sharded_verify, pack_verify_out,
+    )
+    from ndt_slam_tpu_torch.graph.pose_graph import (
+        graph_from_numpy, make_sharded_optimize,
+    )
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.parallel.mesh import balanced_factors
+    from ndt_slam_tpu_torch.parallel.register import (
+        make_sharded_frame_step, make_sharded_sequential_step,
+    )
+
+    n = dist.get_world_size()
+    dp, _ = balanced_factors(n)
+    mesh = make_mesh(n, dp=dp)
+    t = {k: _dev(v, device) for k, v in inp.items()}
+    src, sm, tgt, tm = t["src_xy"], t["src_mask"], t["tgt_xy"], t["tgt_mask"]
+    zeros = torch.zeros((dp, 3), dtype=torch.float32, device=src.device)
+
+    def rows(a, b=dp):
+        """`a` repeated over b rows."""
+        return a.expand(b, *a.shape).contiguous()
+
+    bp = ("dp", "pt")
+    kernels.reset_launch_counts()
+    frame = make_sharded_frame_step(mesh, cfg)(
+        shard(rows(src), mesh, bp), shard(rows(sm), mesh, bp),
+        shard(rows(tgt), mesh, bp), shard(rows(tm), mesh, bp),
+        *(shard(a, mesh, ("dp",))
+          for a in (zeros, zeros, zeros, rows(t["cov"]))))
+    seq = make_sharded_sequential_step(mesh, cfg)(
+        shard(src, mesh, ("pt",)), shard(sm, mesh, ("pt",)), t["odo"],
+        zeros[0], zeros[0], t["cov"], shard(tgt, mesh, ("pt",)),
+        shard(tm, mesh, ("pt",)), src, sm)
+    flat = make_mesh(n, dp=n)
+    g = graph_from_numpy(**graph, device=device)
+    pg, chi2 = make_sharded_optimize(flat, iterations=2, cg_iters=8)(g)
+    ver = make_sharded_verify(flat, vcfg)(
+        src, sm, rows(tgt, n), rows(tm, n),
+        torch.zeros((n, 3), dtype=torch.float32, device=src.device))
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return {"mesh": (dp, n // dp), "frame_step": _np(frame),
+            "sequential_step": _np(seq), "pose_graph": _np(pg),
+            "chi2": float(chi2), "verify": _np(pack_verify_out(ver)),
+            "wrappers": kernels.wrapper_launch_counts()}
 
 
 def run(jobs: list) -> list:

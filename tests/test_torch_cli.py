@@ -39,6 +39,7 @@ from ndt_slam_tpu.io.simulate import simulate_sequence
 from ndt_slam_tpu.metrics import ate_rmse as j_ate_rmse
 
 from ndt_slam_tpu_torch.config import SlamConfig
+from ndt_slam_tpu_torch.io import pcd
 
 torch.set_num_threads(2)
 
@@ -90,6 +91,8 @@ def test_summary_has_the_jax_cli_keys(tmp_path, monkeypatch, capsys):
     capsys.readouterr()
     assert summary["frames"] == 7
     assert summary["n_grid_fallbacks"] == 0 and "grid_fallbacks" not in summary
+    # the maps went through the JAX package's writer order
+    assert summary["pcd_writer"] == pcd.writer()
     frames = simulate_sequence(n_frames=10)
     odo = np.asarray([f.odo_pose for f in frames[3:]])
     true = np.asarray([f.true_pose for f in frames[3:]])

@@ -3,7 +3,9 @@ format (write, read, the side blocks), the simulator (array-equal for one
 seed), RPE, the JSONL writers, and the ctypes binding of
 csrc/libndtslam.so (the native resampler, parsers and PCD writer against
 their numpy twins, bit for bit; skipped with a reason where the library
-does not load)."""
+does not load), and the PCD files: both packages' `save_pcd` write the
+same bytes with the native writer and on the numpy fallback, and
+`load_pcd` reads them back as the JAX package's does."""
 
 import json
 import os
@@ -11,6 +13,9 @@ import os
 import numpy as np
 import pytest
 
+from ndt_slam_tpu.io import native as j_native
+from ndt_slam_tpu.io.pcd import load_pcd as j_load_pcd
+from ndt_slam_tpu.io.pcd import save_pcd as j_save_pcd
 from ndt_slam_tpu.io.simulate import simulate_sequence as j_simulate
 from ndt_slam_tpu.io.tsukuba import (
     read_tsukuba_log as j_read_tsukuba_log,
@@ -20,7 +25,8 @@ from ndt_slam_tpu.metrics import rpe_rmse as j_rpe_rmse
 
 from ndt_slam_tpu_torch.io import native
 from ndt_slam_tpu_torch.io.carmen import read_carmen_log
-from ndt_slam_tpu_torch.io.pcd import save_pcd
+from ndt_slam_tpu_torch.io import pcd
+from ndt_slam_tpu_torch.io.pcd import _save_pcd_py, load_pcd, save_pcd
 from ndt_slam_tpu_torch.io.simulate import (
     Mover, default_world, raycast, simulate_sequence,
 )
@@ -169,7 +175,7 @@ def test_native_pcd_matches_python(need_native, tmp_path):
     xy = np.random.default_rng(4).uniform(-30, 30, (200, 2)).astype(np.float32)
     a, b = str(tmp_path / "a.pcd"), str(tmp_path / "b.pcd")
     native.save_pcd(a, xy)
-    save_pcd(b, xy)
+    _save_pcd_py(b, xy)
     with open(a) as f, open(b) as g:
         la, lb = f.read().splitlines(), g.read().splitlines()
     assert la[:11] == lb[:11] and la[10] == "DATA ascii"
@@ -183,3 +189,73 @@ def test_native_pcd_matches_python(need_native, tmp_path):
 def test_native_status_is_reported():
     assert isinstance(native.available(), bool)
     assert ("loaded" in native.status()) == native.available()
+
+
+# awkward values: 6 significant digits and 6 decimals part on each
+PCD_POINTS = np.concatenate([
+    np.array([[12.345678, -0.0001234], [3.5, 101.25], [0.0, -7e-7]],
+             np.float32),
+    np.random.default_rng(5).uniform(-40, 40, (60, 2)).astype(np.float32),
+])
+
+
+def _pcd_writers(monkeypatch, writer):
+    """Route both packages' `save_pcd` to `writer`: "native" (the
+    library, as both take it where it loads) or "numpy" (the port told
+    the library is absent, the JAX package's native call failing)."""
+    if writer == "native":
+        if not native.available():
+            pytest.skip(f"csrc/libndtslam.so: {native.status()}")
+        return
+
+    def fail(path, xy):
+        raise OSError("native writer made to fail")
+
+    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(j_native, "save_pcd", fail)
+
+
+@pytest.mark.parametrize("writer", ["native", "numpy"])
+def test_save_pcd_writes_the_jax_packages_bytes(tmp_path, monkeypatch,
+                                                writer):
+    _pcd_writers(monkeypatch, writer)
+    assert pcd.writer() == writer
+    a, b = tmp_path / "port.pcd", tmp_path / "jax.pcd"
+    save_pcd(str(a), PCD_POINTS)
+    j_save_pcd(str(b), PCD_POINTS)
+    assert a.read_bytes() == b.read_bytes()
+    lines = a.read_text().splitlines()
+    assert lines[10] == "DATA ascii" and len(lines) == 11 + len(PCD_POINTS)
+    assert lines[11] == ("12.3457 -0.0001234 0" if writer == "native"
+                         else "12.345678 -0.000123 0")
+
+
+@pytest.mark.parametrize("writer", ["native", "numpy"])
+def test_load_pcd_reads_back_what_save_pcd_writes(tmp_path, monkeypatch,
+                                                  writer):
+    """Within the format (6 significant digits, or 6 decimals) and the
+    float32 the file is read into, and equal to the JAX package's
+    `load_pcd` of the same file."""
+    _pcd_writers(monkeypatch, writer)
+    path = str(tmp_path / "map.pcd")
+    save_pcd(path, PCD_POINTS)
+    back = load_pcd(path)
+    assert back.dtype == np.float32 and back.shape == PCD_POINTS.shape
+    np.testing.assert_array_equal(back, j_load_pcd(path))
+    if writer == "native":
+        np.testing.assert_allclose(back, PCD_POINTS, rtol=5.1e-6, atol=0)
+    else:
+        np.testing.assert_allclose(back, PCD_POINTS, rtol=1.2e-7, atol=5e-7)
+
+
+def test_load_pcd_matches_jax_on_an_empty_and_a_ragged_file(tmp_path):
+    empty = str(tmp_path / "empty.pcd")
+    save_pcd(empty, np.zeros((0, 2), np.float32))
+    assert load_pcd(empty).shape == (0, 2)
+    np.testing.assert_array_equal(load_pcd(empty), j_load_pcd(empty))
+    ragged = tmp_path / "ragged.pcd"
+    ragged.write_text("VERSION 0.7\nDATA ascii\n1.5 2.5 0\n\n7\n-3 4\n")
+    np.testing.assert_array_equal(load_pcd(str(ragged)),
+                                  j_load_pcd(str(ragged)))
+    np.testing.assert_array_equal(load_pcd(str(ragged)),
+                                  [[1.5, 2.5], [-3.0, 4.0]])

@@ -1,5 +1,6 @@
 """Parity of the PyTorch port's NDT core (ndt_slam_tpu_torch.ndt) with
-the JAX package, on the CPU.
+the JAX package, on the CPU (and the pose, point-buffer and device-count
+helpers the package shares with it).
 
 The same seeded numpy inputs go through the JAX function and its port.
 On the CPU the port's kernel wrappers run their plain twins; the JAX
@@ -18,7 +19,11 @@ import torch
 
 import jax.numpy as jnp
 
+from ndt_slam_tpu.core import pose2 as j_pose2
+from ndt_slam_tpu.core.points import PointBuffer as JPointBuffer
+from ndt_slam_tpu.core.points import from_host_list as j_from_host_list
 from ndt_slam_tpu.core.points import pad_points as j_pad
+from ndt_slam_tpu.core.points import sanitize as j_sanitize
 from ndt_slam_tpu.ndt import pallas_kernels as pk
 from ndt_slam_tpu.ndt.compact import (
     compact_grid as j_compact_grid,
@@ -31,7 +36,13 @@ from ndt_slam_tpu.ndt.score import gauss_constants as j_gauss
 from ndt_slam_tpu.ndt.solve import align as j_align
 
 from ndt_slam_tpu_torch import convert
-from ndt_slam_tpu_torch.core.points import pad_points
+from ndt_slam_tpu_torch.core import pose2
+from ndt_slam_tpu_torch.core.points import (
+    PointBuffer, from_host_list, pad_points, sanitize,
+)
+from ndt_slam_tpu_torch.parallel.dist import (
+    global_device_count, local_device_count,
+)
 from ndt_slam_tpu_torch.core.segment import segment_sum
 from ndt_slam_tpu_torch.ndt import kernels
 from ndt_slam_tpu_torch.ndt.compact import (
@@ -271,3 +282,64 @@ def test_wrappers_take_the_twin_only_on_cpu(scene):
     meta = torch.empty((4, 2), device="meta")
     with pytest.raises(ValueError, match="no NDT kernel route"):
         kernels.nn_sq_dists(meta, meta[:, 0] > 0, meta, meta[:, 0] > 0)
+
+
+def test_pose_helpers_match_jax():
+    """`rot2` over a batch of headings, `relative_points` of points of a
+    scan's reach into batched poses and `distance`, to 1e-6 (f32 sine
+    and cosine may part by an ulp, so the coordinates stay within a few
+    metres)."""
+    rng = np.random.default_rng(6)
+    th = rng.uniform(-720.0, 720.0, (4, 5)).astype(np.float32)
+    pose = np.concatenate([rng.uniform(-3, 3, (7, 2)),
+                           rng.uniform(-180, 180, (7, 1))],
+                          axis=1).astype(np.float32)
+    pts = rng.uniform(-5, 5, (7, 50, 2)).astype(np.float32)
+    got = pose2.rot2(torch.from_numpy(th)).numpy()
+    assert got.shape == (4, 5, 2, 2)
+    np.testing.assert_allclose(got, np.asarray(j_pose2.rot2(jnp.asarray(th))),
+                               rtol=1e-6, atol=1e-6)
+    got = pose2.relative_points(torch.from_numpy(pose),
+                                torch.from_numpy(pts)).numpy()
+    want = np.asarray(j_pose2.relative_points(jnp.asarray(pose),
+                                              jnp.asarray(pts)))
+    assert got.shape == pts.shape
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    # a map point taken into the pose's frame and back is itself
+    back = pose2.global_points(torch.from_numpy(pose),
+                               torch.from_numpy(got)).numpy()
+    np.testing.assert_allclose(back, pts, atol=2e-6)
+    np.testing.assert_allclose(pose2.distance(torch.from_numpy(pose)).numpy(),
+                               np.asarray(j_pose2.distance(jnp.asarray(pose))),
+                               rtol=1e-6, atol=1e-6)
+
+
+def test_point_buffer_helpers_match_jax():
+    """`sanitize` puts the sentinel in every masked slot (one buffer and
+    a [B] batch); `from_host_list` pads a host list as the JAX package
+    does, on the device it is given."""
+    rng = np.random.default_rng(7)
+    xy = rng.uniform(-10, 10, (3, 40, 2)).astype(np.float32)
+    mask = rng.random((3, 40)) < 0.6
+    got = sanitize(PointBuffer(torch.from_numpy(xy), torch.from_numpy(mask)))
+    for b in range(3):
+        want = j_sanitize(JPointBuffer(jnp.asarray(xy[b]), jnp.asarray(mask[b])))
+        np.testing.assert_array_equal(got.xy[b].numpy(), np.asarray(want.xy))
+        np.testing.assert_array_equal(got.mask[b].numpy(),
+                                      np.asarray(want.mask))
+    pts = rng.uniform(-5, 5, (23, 2)).tolist()
+    for cap in (16, 64):
+        got = from_host_list(pts, cap, CPU)
+        want = j_from_host_list(pts, cap)
+        assert got.xy.device == CPU and got.capacity == cap
+        np.testing.assert_array_equal(got.xy.numpy(), np.asarray(want.xy))
+        np.testing.assert_array_equal(got.mask.numpy(), np.asarray(want.mask))
+
+
+def test_device_counts_on_the_cpu():
+    """One process a device: without a card one device here, and without
+    a process group the global count is the local one."""
+    assert not torch.distributed.is_initialized()
+    assert local_device_count() == (torch.cuda.device_count()
+                                    if torch.cuda.is_available() else 1)
+    assert global_device_count() == local_device_count()
