@@ -29,28 +29,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
-
-def _room_scan(n, pose=(0.0, 0.0, 0.0), noise=0.01, seed=0):
-    """Analytic rectangular-room LiDAR scan (no simulator dependency)."""
-    rng = np.random.default_rng(seed)
-    tx, ty, th = pose
-    angles = np.linspace(-np.pi, np.pi, n, endpoint=False)
-    pts = np.empty((n, 2), np.float32)
-    for i, a in enumerate(angles):
-        wa = a + th
-        dx, dy = np.cos(wa), np.sin(wa)
-        ts = []
-        if dx > 1e-9:
-            ts.append((5.0 - tx) / dx)
-        if dx < -1e-9:
-            ts.append((-5.0 - tx) / dx)
-        if dy > 1e-9:
-            ts.append((4.0 - ty) / dy)
-        if dy < -1e-9:
-            ts.append((-4.0 - ty) / dy)
-        t = min(t for t in ts if t > 0) + noise * rng.standard_normal()
-        pts[i] = (t * np.cos(a), t * np.sin(a))
-    return pts
+from bench_torch import _room_scan  # noqa: E402  (the port's shared copy)
 
 
 def _device(device):

@@ -141,9 +141,23 @@ Phases, one line each (any failure exits non-zero):
  14. [tools] cli/eval_ate_torch.py in a fresh interpreter on [main]'s
      poses_full.txt gives [main]'s ATE to 1e-9 m, the JAX-free fixture
      generator's first 5 frames equal the committed office_loop.clf
-     lines, and [main]'s map.pcd reads back through `io.pcd.load_pcd`.
-Each of 11 (d), 12 and 13 sets the launch counts to 0 just before its
-run and reads them just after; the kernels line carries them.
+     lines, and [main]'s map.pcd reads back through `io.pcd.load_pcd`;
+ 15. [bench] `bench_torch.main(["--quick"])` in this process: its four
+     lines in order, named `*_gpu`, finite and above 0, each with the
+     three kernels launched (the launch counts read after each line);
+     then the register line on the moment lattice
+     (`--ndt-incremental-grid 1`), its kernels launched; `device_chain`
+     on the card against the CPU twins for 8 frames at `SlamConfig.small`
+     capacities: fused poses within 1e-3 m and 0.01 deg, the last
+     target's point count within 1 %; the chain's device-to-host copies
+     a frame at the bench's config;
+ 16. [scaling] cli/bench_scaling_torch.py's workloads (verify, seqstep,
+     pairs) as one rank on the card (nccl), 3 timed calls each, and
+     verify as two ranks sharing the card over gloo, accepting what one
+     rank accepts; candidates/s and frame steps/s printed.
+Each of 11 (d), 12, 13, 15 and 16 sets the launch counts to 0 just
+before its run and reads them just after; the kernels line carries
+them.
 The last line is the JSON result; the kernels' JSON line and the
 card's name and power limit come just before it.
 """
@@ -212,6 +226,17 @@ REGISTER_REPS = 30           # timed calls a [register] row
 ENTRY_TOL = 1e-4             # [entry] card against CPU: m, rad, cost rtol
 ENTRY_XY_TOL = 2e-4          # [entry] map-frame points, m
 TOOLS_ATE_TOL_M = 1e-9       # [tools] eval_ate_torch against [main]'s ATE
+BENCH_LINES = ("ndt_register_scans_per_s", "pipeline_scans_per_s",
+               "pipeline_batch8_scans_per_s", "pipeline_device_scans_per_s")
+BENCH_CHAIN_FRAMES = 8       # [bench] device_chain, card against CPU twins
+# [bench] device_chain bars, card against the CPU twins: the two part by
+# 2e-5 m and 2.4e-4 deg on the H100; a target left stale or a scan
+# dropped from it moves the fused poses 0.034 m and 0.33 deg on the CPU
+# and the last target's point count by about 30 %
+BENCH_CHAIN_M, BENCH_CHAIN_DEG, BENCH_CHAIN_COUNT = 1e-3, 0.01, 0.01
+BENCH_D2H_FRAMES = 16        # [bench] chain frames profiled for copies
+SCALING_REPS = 3             # [scaling] timed calls a row
+SCALING_BATCH = 8            # [scaling] candidates (verify, pairs)
 
 
 def _require(ok, what):
@@ -2640,6 +2665,177 @@ def _check_tools(kept, fe_full, gt):
     _require(same_map, "[tools] load_pcd reads [main]'s map.pcd back")
 
 
+class _LineLog:
+    """A stdout that keeps each complete line with the kernels' launch
+    counts at the moment it was written."""
+
+    def __init__(self):
+        self._buf = ""
+        self.lines = []
+
+    def write(self, text):
+        from ndt_slam_tpu_torch.ndt import kernels
+
+        self._buf += text
+        while "\n" in self._buf:
+            line, self._buf = self._buf.split("\n", 1)
+            self.lines.append((line, kernels.launch_counts()))
+        return len(text)
+
+    def flush(self):
+        pass
+
+
+def _check_bench(device):
+    """[bench] bench_torch.main(["--quick"]) in this process, the launch
+    counts set to 0 just before and read after each line: four `*_gpu`
+    lines in order, each finite and above 0, each with the three kernels
+    launched; the register line on the moment lattice; then
+    `device_chain` on the card against the CPU twins for
+    BENCH_CHAIN_FRAMES frames at `SlamConfig.small` capacities, and the
+    device-to-host copies a frame of the chain at the bench's config.
+    Returns the launches by wrapper of the four lines' run."""
+    import contextlib
+    import torch
+    from ndt_slam_tpu_torch.io.simulate import simulate_sequence
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    bench = _load_file("bench_torch", os.path.join(ROOT, "bench_torch.py"))
+    log = _LineLog()
+    kernels.reset_launch_counts()
+    before = kernels.launch_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(log):
+        rc = bench.main(["--quick"])
+    wall = time.perf_counter() - t0
+    wrappers = kernels.wrapper_launch_counts()
+    _require(rc == 0, "[bench] bench_torch.main(['--quick']) exits 0")
+    _require(len(log.lines) == len(BENCH_LINES),
+             f"[bench] {len(BENCH_LINES)} lines, got {len(log.lines)}")
+    for (text, counts), name in zip(log.lines, BENCH_LINES):
+        line = json.loads(text)
+        delta = {k: counts[k] - before[k] for k in counts}
+        before = counts
+        print(f"[bench] {text}; launches {delta}", flush=True)
+        _require(line["metric"] == f"{name}_gpu"
+                 and np.isfinite(line["value"]) and line["value"] > 0,
+                 f"[bench] {name}_gpu finite and above 0")
+        _require(min(delta.values()) > 0,
+                 f"[bench] every kernel launched in {name}")
+    print(f"[bench] the four lines in {wall:.1f} s; launches by wrapper "
+          f"{wrappers} ({_nvidia_smi()})", flush=True)
+
+    log = _LineLog()
+    kernels.reset_launch_counts()
+    with contextlib.redirect_stdout(log):
+        rc = bench.main(["--register-only", "--quick",
+                         "--ndt-incremental-grid", "1"])
+    counts = kernels.launch_counts()
+    _require(rc == 0 and len(log.lines) == 1,
+             "[bench] the register line on the lattice exits 0, one line")
+    line = json.loads(log.lines[0][0])
+    print(f"[bench] --ndt-incremental-grid 1: {log.lines[0][0]}; launches "
+          f"{counts}", flush=True)
+    _require(line["metric"] == f"{BENCH_LINES[0]}_gpu"
+             and np.isfinite(line["value"]) and line["value"] > 0
+             and min(counts.values()) > 0,
+             "[bench] the lattice's register line finite, above 0, every "
+             "kernel launched")
+
+    # the register line's step is [register]'s full step: the Newton
+    # iterations a call over each one's odometry variants, and one call's
+    # median milliseconds by CUDA events
+    reg = bench.register_config()
+    for n, who in ((10, "the bench's --quick"),
+                   (REGISTER_REPS + 2, "[register]'s")):
+        inp = bench.register_inputs(reg, device, variants=n)
+        step = bench.register_step(reg, inp)
+        its = [int(step(o).iterations) for o in inp["odos"]]
+        ms = _time_ms(lambda: step(inp["odos"][0]))
+        print(f"[bench] register step over {who} {n} variants: iterations "
+              f"{its}; {ms:.3f} ms a call (median of 20, the first "
+              f"variant)", flush=True)
+
+    args = bench._parser().parse_args([])
+    small = bench.pipeline_config(args, small=True)
+    frames = simulate_sequence(n_frames=BENCH_CHAIN_FRAMES,
+                               beams=bench.BEAMS, seed=4)
+    on_card, _, tgt_card = bench.device_chain(small, frames, device)
+    on_cpu, _, tgt_cpu = bench.device_chain(small, frames,
+                                            torch.device("cpu"))
+    a, b = on_card[:, :3].cpu().numpy(), on_cpu[:, :3].numpy()
+    dxy = float(np.abs(a[:, :2] - b[:, :2]).max())
+    dth = float(np.abs((a[:, 2] - b[:, 2] + 180.0) % 360.0 - 180.0).max())
+    n_card, n_cpu = int(tgt_card.mask.sum()), int(tgt_cpu.mask.sum())
+    full = bench.pipeline_config(args)
+    chain = simulate_sequence(n_frames=BENCH_D2H_FRAMES, beams=bench.BEAMS,
+                              seed=4)
+    outs = []
+    dev = _device_events(
+        lambda: outs.append(bench.device_chain(full, chain, device)[0]), 1)
+    d2h = sum("memcpy dtoh" in e.name.lower() for e in dev)
+    iters = outs[-1][:, 14].cpu().numpy()   # small(): iterations
+    print(f"[bench] device_chain, {BENCH_CHAIN_FRAMES} frames at the small "
+          f"capacities, card vs CPU twins: max {dxy:.3g} m, {dth:.3g} deg, "
+          f"last target {n_card} points against {n_cpu}; "
+          f"at the bench's config {d2h / BENCH_D2H_FRAMES:g} device-to-host "
+          f"copies and {len(dev) / BENCH_D2H_FRAMES:g} device operations a "
+          f"frame over {BENCH_D2H_FRAMES} frames, Newton iterations "
+          f"{iters.astype(int).tolist()}", flush=True)
+    _require(np.isfinite(a).all() and dxy <= BENCH_CHAIN_M
+             and dth <= BENCH_CHAIN_DEG,
+             f"[bench] device_chain on the card within {BENCH_CHAIN_M} m "
+             f"and {BENCH_CHAIN_DEG} deg of the CPU twins")
+    _require(abs(n_card - n_cpu) <= BENCH_CHAIN_COUNT * n_cpu,
+             f"[bench] device_chain's last target on the card within "
+             f"{BENCH_CHAIN_COUNT:.0%} of the CPU twins' point count")
+    return wrappers
+
+
+def _check_scaling():
+    """[scaling] cli/bench_scaling_torch.py's three workloads as one rank
+    on the card (nccl), SCALING_REPS timed calls each, and verify as two
+    ranks sharing the card over gloo: accepted equal to one rank's.
+    Returns the one-rank run's launches by wrapper, the three workloads
+    together."""
+    from ndt_slam_tpu_torch.ndt import kernels
+
+    tool = _load_file("bench_scaling_torch",
+                      os.path.join(ROOT, "cli", "bench_scaling_torch.py"))
+    t0 = time.perf_counter()
+    rows = tool.run_rows(1, tool.WORKLOADS, SCALING_REPS, SCALING_BATCH,
+                         device="cuda")
+    two, = tool.run_rows(2, ["verify"], SCALING_REPS, SCALING_BATCH,
+                         device="cuda", backend="gloo")
+    card = _nvidia_smi()
+    wrappers = {}
+    for r in rows + [two]:
+        key = next(k for k in ("accepted", "iterations", "converged")
+                   if k in r)
+        unit = "frame steps/s" if r["workload"] == "seqstep" \
+            else "candidates/s"
+        print(f"[scaling] {r['workload']}, {r['devices']} rank(s) on the "
+              f"card ({'nccl' if r is not two else 'gloo'}), batch "
+              f"{r['batch']}: {r['pairs_per_sec']:.2f} {unit} "
+              f"({r['sec_per_batch'] * 1e3:.2f} ms a call), {key} "
+              f"{r[key]}; launches by wrapper a rank {r['launches']} "
+              f"({card})", flush=True)
+        for w in r["launches"]:
+            counts = {k: sum(w[f.__name__] for f in fns)
+                      for k, fns in kernels.WRAPPERS.items()}
+            _require(min(counts.values()) > 0,
+                     f"[scaling] {r['workload']}: every kernel launched")
+    for r in rows:
+        for k, v in r["launches"][0].items():
+            wrappers[k] = wrappers.get(k, 0) + v
+    print(f"[scaling] {time.perf_counter() - t0:.1f} s; two ranks' verify "
+          f"accepted {two['accepted']}, one rank's {rows[0]['accepted']}",
+          flush=True)
+    _require(two["accepted"] == rows[0]["accepted"],
+             "[scaling] two ranks' verify accepts what one rank's does")
+    return wrappers
+
+
 def _row_launches(name, wrappers):
     """A kernels-line row's launches in a run counted by wrapper: a
     variant's own wrapper, a kernel's wrappers together (as
@@ -2867,12 +3063,20 @@ def main() -> int:
     _check_tools(kept.name, fe_full, gt)
     kept.cleanup()
     lap("tools")
+
+    # 15. the bench, 16. the scaling report's workloads
+    bench_w = _check_bench(device)
+    lap("bench")
+    scaling_w = _check_scaling()
+    lap("scaling")
     for r in rows:
         r["launches_dist_split"] = [_row_launches(r["name"], w)
                                     for w in dist_d]
         r["launches_register"] = _row_launches(r["name"], reg)
         r["launches_entry"] = _row_launches(r["name"], entry)
         r["launches_dryrun"] = [_row_launches(r["name"], w) for w in dryrun]
+        r["launches_bench"] = _row_launches(r["name"], bench_w)
+        r["launches_scaling"] = _row_launches(r["name"], scaling_w)
 
     print(f"[time] {time.perf_counter() - t_start:.1f} s from the device "
           f"check to here", flush=True)

@@ -5,9 +5,10 @@ Times each stage of `ndt_slam_tpu_torch/pipeline/frontend._registration_step`
 alone and warm, and the full step, at the operating point of
 cli/profile_register.py: a 192 x 192 window, ndt_min_points_per_cell 3,
 2048 scan slots and 1024 active cells, a 32768-slot local map made of
-four room scans and a 1081-beam scan. Prints the JAX tool's markdown
-table (stage | time [us] | eff. GFLOP/s) with the device operations of
-one call added:
+four room scans and a 1081-beam scan (`bench_torch.register_config`
+and `register_inputs`, the bench's register line). Prints the JAX
+tool's markdown table (stage | time [us] | eff. GFLOP/s) with the
+device operations of one call added:
 
   python cli/profile_register_torch.py              # on the card
   python cli/profile_register_torch.py --reps 100
@@ -46,25 +47,6 @@ SPIN_CYCLES = 100_000  # their length: about 50 us at 1980 MHz
 EDGE_S = 0.05          # host time at each end of a profiler session
 PROFILED_CALLS = 3
 PROFILE_TRIES = 3      # sessions before a count is taken as it is
-
-
-def _room_scan(n, pose=(0.0, 0.0, 0.0), noise=0.01, seed=0):
-    rng = np.random.default_rng(seed)
-    tx, ty, th = pose
-    angles = np.linspace(-np.pi, np.pi, n, endpoint=False)
-    wa = angles + th
-    dx, dy = np.cos(wa), np.sin(wa)
-    t = np.full(n, np.inf)
-    with np.errstate(divide="ignore"):
-        for lim, comp, sgn in [(5.0, dx, 1), (-5.0, dx, -1),
-                               (4.0, dy, 1), (-4.0, dy, -1)]:
-            off = tx if comp is dx else ty
-            tt = (lim - off) / comp
-            tt = np.where((comp * sgn > 1e-9) & (tt > 0), tt, np.inf)
-            t = np.minimum(t, tt)
-    t = t + noise * rng.standard_normal(n)
-    return np.stack([t * np.cos(angles), t * np.sin(angles)],
-                    1).astype(np.float32)
 
 
 def _card() -> str:
@@ -153,47 +135,27 @@ def profile_rows(device="cuda", reps: int = 30, small: bool = False):
     "device" (where the stage's output lies)}."""
     import torch
 
-    from ndt_slam_tpu_torch.config import SlamConfig
-    from ndt_slam_tpu_torch.core.points import PointBuffer, pad_points
+    from bench_torch import register_config, register_inputs, register_step
+    from ndt_slam_tpu_torch.core.points import PointBuffer
     from ndt_slam_tpu_torch.mapping.voxel import voxel_filter
     from ndt_slam_tpu_torch.ndt import kernels
     from ndt_slam_tpu_torch.ndt.compact import compact_grid
     from ndt_slam_tpu_torch.ndt.grid import build_grid
     from ndt_slam_tpu_torch.ndt.score import gauss_constants
     from ndt_slam_tpu_torch.ndt.solve import align
-    from ndt_slam_tpu_torch.pipeline.frontend import _registration_step
 
     device = torch.device(device)
     cuda = device.type == "cuda"
     if cuda and not torch.cuda.is_available():
         raise RuntimeError("no CUDA device; pass --device cpu to run the "
                            "plain PyTorch twins")
-    if small:   # a CPU-sized cut of the operating point
-        cells, slots, active, tgt_slots, tgt_beams, beams = \
-            48, 2048, 256, 4096, 541, 361
-    else:
-        cells, slots, active, tgt_slots, tgt_beams, beams = \
-            192, 2048, 1024, 32768, 4321, 1081
-    cfg = SlamConfig(
-        grid_cells_x=cells, grid_cells_y=cells, ndt_min_points_per_cell=3,
-        max_scan_points=slots, ndt_max_active_cells=active,
-    )
-    tgt_parts = [
-        _room_scan(tgt_beams, pose=(0.2 * i, 0.1 * i, 0.05 * i), seed=i)
-        for i in range(4)
-    ]
-    local = pad_points(np.concatenate(tgt_parts, 0), tgt_slots, device)
-    scan_np = _room_scan(beams, pose=(0.05, 0.03, 0.02), seed=9)
-    scan = pad_points(scan_np, slots, device)
+    cfg = register_config(small)
+    V = reps + 2        # every rep distinct; the last two variants warm up
+    inp = register_inputs(cfg, device, small, variants=V)
     put = lambda a: torch.from_numpy(np.asarray(a)).to(device)  # noqa: E731
-    scan_xy, scan_mask = scan.xy, scan.mask
+    scan_xy, scan_mask = inp["scan"].xy, inp["scan"].mask
+    local = inp["local"]
     local_xy, local_mask = local.xy, local.mask
-    odo = np.array([0.05, 0.03, 1.5], np.float32)
-    zeros3 = put(np.zeros(3, np.float32))
-    cov0 = put(np.eye(3, dtype=np.float32) * 1e-4)
-
-    # every rep distinct; the last two variants warm up
-    V = reps + 2
     shifts = np.linspace(0.0, 1e-3, V).astype(np.float32)
     scan_host = scan_xy.cpu().numpy()
     pose_vars = [put(np.array([s, s, s], np.float32)) for s in shifts]
@@ -221,11 +183,9 @@ def profile_rows(device="cuda", reps: int = 30, small: bool = False):
         row("(floor: trivial torch op)", lambda p: p + 1.0,
             [(p,) for p in pose_vars])
 
-    def full(o):
-        return _registration_step(cfg, scan_xy, scan_mask, o, zeros3,
-                                  zeros3, cov0, local_xy, local_mask)
-    odo_vars = [(put(odo + s),) for s in shifts]
-    it = int(full(put(odo)).iterations)
+    full = register_step(cfg, inp)
+    odo_vars = [(o,) for o in inp["odos"]]
+    it = int(full(inp["odo"]).iterations)
 
     def vf(xy, m):
         return voxel_filter(PointBuffer(xy, m), cfg.source_leaf_size)
@@ -266,7 +226,7 @@ def profile_rows(device="cuda", reps: int = 30, small: bool = False):
     # sgh, 12 candidates of ~14 for the line search, 5 a fitness pair
     flops_sgh = N * K * 28
     flops_ls = N * K * 12 * 14
-    flops_fit = slots * L * 5
+    flops_fit = cfg.max_scan_points * L * 5
     row("source voxel filter", vf, [(x, scan_mask) for x in scan_vars])
     row("NDT grid build (131k-cap scatter)", gb,
         [(local_xy, local_mask, c) for c in center_vars])

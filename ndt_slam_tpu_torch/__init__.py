@@ -13,4 +13,6 @@ their plain PyTorch twins. Nothing here imports JAX or `ndt_slam_tpu`.
 
 from ndt_slam_tpu_torch.config import SlamConfig
 
-__all__ = ["SlamConfig"]
+__version__ = "0.1.0"
+
+__all__ = ["SlamConfig", "__version__"]

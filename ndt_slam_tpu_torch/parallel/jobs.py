@@ -289,6 +289,98 @@ def dryrun(cfg: SlamConfig, vcfg: SlamConfig, inp: dict, graph: dict,
             "wrappers": kernels.wrapper_launch_counts()}
 
 
+def scaling(cfg: SlamConfig, workload: str, inp: dict, reps: int,
+            device="cpu", threads: int | None = None) -> dict:
+    """One row of `cli/bench_scaling_torch.py` on every rank of the group,
+    each rank given the whole of `inp` (numpy) and cutting its shards:
+
+    - "verify": `make_sharded_verify` over every rank on "dp" of (src,
+      src_mask, tgt, tgt_mask) from init `init` (warm-up), then from
+      each of `inits`; `accepted` is summed on the host each call;
+    - "seqstep": `make_sharded_sequential_step` over every rank on "pt"
+      (the voxel-filtered source and the target sharded, the raw scan
+      replicated) from odometry `odos[0]` (warm-up), then from each of
+      `odos`; the cost is read on the host each call;
+    - "pairs": `make_batch_register` with the pairs (src_b, tgt_b,
+      center) sharded over every rank on "dp", from `init`, then from
+      each of `inits`; `converged` is summed over the ranks and read on
+      the host each call.
+
+    `threads`: this rank's CPU threads. Returns the seconds a call of
+    the timed `reps` (host clock), the count of the last call
+    (accepted, iterations or converged, the same on every rank) and
+    the launches by wrapper of the whole row."""
+    import time
+
+    from ndt_slam_tpu_torch.graph.loop_closure import make_sharded_verify
+    from ndt_slam_tpu_torch.mapping.voxel import voxel_filter
+    from ndt_slam_tpu_torch.ndt import kernels
+    from ndt_slam_tpu_torch.core.points import PointBuffer
+    from ndt_slam_tpu_torch.parallel.register import (
+        make_batch_register, make_sharded_sequential_step,
+    )
+    import torch.distributed as dist
+
+    if threads is not None:
+        torch.set_num_threads(threads)
+    n = dist.get_world_size()
+    t = {k: _dev(v, device) for k, v in inp.items() if k not in
+         ("inits", "odos")}
+    kernels.reset_launch_counts()
+    if workload == "verify":
+        fn = make_sharded_verify(make_mesh(n, dp=n), cfg)
+
+        def call(init):
+            out = fn(t["src_xy"], t["src_mask"], t["tgt_xy"], t["tgt_mask"],
+                     init)
+            return int(out.accepted.sum())
+        first, timed = t["init"], [_dev(v, device) for v in inp["inits"]]
+        key = "accepted"
+    elif workload == "seqstep":
+        mesh = make_mesh(n, dp=1)
+        fn = make_sharded_sequential_step(mesh, cfg)
+        srcf = voxel_filter(PointBuffer(t["raw_xy"], t["raw_mask"]),
+                            cfg.source_leaf_size)
+        pt = ("pt",)
+        src = (shard(srcf.xy, mesh, pt), shard(srcf.mask, mesh, pt))
+        tgt = (shard(t["tgt_xy"], mesh, pt), shard(t["tgt_mask"], mesh, pt))
+        zeros3 = torch.zeros(3, dtype=torch.float32, device=src[0].device)
+        cov0 = torch.eye(3, dtype=torch.float32, device=src[0].device) * 1e-4
+
+        def call(odo):
+            out = fn(*src, odo, zeros3, zeros3, cov0, *tgt, t["raw_xy"],
+                     t["raw_mask"])
+            float(out.cost)
+            return int(out.iterations)
+        timed = [_dev(v, device) for v in inp["odos"]]
+        first = timed[0]
+        key = "iterations"
+    elif workload == "pairs":
+        mesh = make_mesh(n, dp=n)
+        fn = make_batch_register(mesh, cfg)
+        bp, dp = ("dp", "pt"), ("dp",)
+        args = [shard(t[k], mesh, bp)
+                for k in ("src_xy", "src_mask", "tgt_xy", "tgt_mask")]
+        center = shard(t["center"], mesh, dp)
+        ax = axis(mesh, "dp")
+
+        def call(init):
+            out = fn(*args, shard(init, mesh, dp), center)
+            return int(ax.sum(out.converged.to(torch.float32).sum()))
+        first = t["init"]
+        timed = [_dev(v, device) for v in inp["inits"]]
+        key = "converged"
+    else:
+        raise ValueError(f"unknown workload {workload!r}")
+    call(first)     # build the kernels, warm up
+    t0 = time.perf_counter()
+    for v in timed[:reps]:
+        count = call(v)
+    sec = (time.perf_counter() - t0) / reps
+    return {"sec_per_batch": sec, key: count,
+            "wrappers": kernels.wrapper_launch_counts()}
+
+
 def run(jobs: list) -> list:
     """Run `jobs`, a list of (function name in this module, args, kwargs),
     in order on this rank; their results in a list (one spawn for
