@@ -1,0 +1,7 @@
+"""Milliseconds a scan of the StageTimer stage(s) verify (back end, loop
+verification), on the card's timeline, over the window outside the
+traced span."""
+
+
+def read(ctx):
+    return ctx.stage_ms_per_scan("verify")
