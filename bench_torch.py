@@ -25,10 +25,9 @@ line is printed, with --register-only or --cpu-baseline the first.
     python bench_torch.py --cpu-baseline   # one core: the baseline
 
 On the card every timed call is queued and the clock stops after one
-`torch.cuda.synchronize()`, but the Newton solve reads its done flag
-on the host every `ndt.solve.DONE_POLL` iterations, so the register and
-device-chain lines keep the host in step with the card inside each
-frame. Without a card the default device fails: pass --device cpu.
+`torch.cuda.synchronize()`; the Newton solve is one launch there and
+reads nothing back. Without a card the default device fails: pass
+--device cpu.
 `main(argv, small=True)` runs every line at a CPU-sized cut (a test
 hook, not a flag).
 """

@@ -48,6 +48,15 @@ constexpr int kNnFinStep =         // sources a block takes at a time
     kNnFinThreads / kNnFinShare * kNnFinRounds;
 constexpr int kNnFinCluster = 8;   // blocks of the fitness finish, one cluster
 constexpr float kBig = 1.0e12f;    // "no neighbour", the twin's BIG
+constexpr int kNewtonThreads = 1024;  // threads a block (a row) of the
+                                      // Newton kernel
+constexpr int kNewtonWarps = kNewtonThreads / 32;
+constexpr int kCands = 12;         // line-search poses an iteration:
+                                   // 6 scales x 2 directions
+// solve.py's _LS_SCALES; candidate j takes scale j / 2 and direction
+// j % 2 (the damped Newton step, the steepest descent)
+__constant__ float kLsScales[kCands / 2] = {1.0f, 0.5f, 0.25f, 0.1f, 0.04f,
+                                            0.015f};
 
 // Operands shared by kernels 1 and 2, passed by value. A launch covers
 // one grid shape (nx, ny, resolution, d1, d2: one loop-closure ladder
@@ -104,14 +113,17 @@ struct Feature {
 // library turns on the card into a product with the f32 reciprocal; a
 // true division floors differently for a few points, since 0.3 is no
 // power of two.
-__device__ __forceinline__ Feature point_feature(const float* p, float2 q,
+// c, s: cosf and sinf of the heading, computed once a pose by the
+// callers that visit many points under it.
+__device__ __forceinline__ Feature point_feature(float tx, float ty, float c,
+                                                 float s, float2 q,
                                                  const float* origin,
                                                  float inv_res) {
   Feature f;
-  f.tx = p[0];
-  f.ty = p[1];
-  f.c = cosf(p[2]);
-  f.s = sinf(p[2]);
+  f.tx = tx;
+  f.ty = ty;
+  f.c = c;
+  f.s = s;
   f.x = q.x;
   f.y = q.y;
   f.px = f.c * q.x - f.s * q.y + f.tx;
@@ -125,15 +137,20 @@ __device__ __forceinline__ Feature point_feature(const float* p, float2 q,
 // inside each warp, then the warps in order. Thread k < V of the block
 // ends with the block's sum of value k. Called by every thread of a
 // block of W warps.
-template <int V, int W = kWinWarps>
-__device__ __forceinline__ float block_sum(float (&v)[V],
-                                           float (*s_warp)[V]) {
+template <int V>
+__device__ __forceinline__ void warp_sum(float (&v)[V]) {
 #pragma unroll
   for (int k = 0; k < V; ++k) {
 #pragma unroll
     for (int off = 16; off > 0; off >>= 1)
       v[k] += __shfl_down_sync(0xffffffffu, v[k], off);
   }
+}
+
+template <int V, int W = kWinWarps>
+__device__ __forceinline__ float block_sum(float (&v)[V],
+                                           float (*s_warp)[V]) {
+  warp_sum<V>(v);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
 #pragma unroll
@@ -145,6 +162,77 @@ __device__ __forceinline__ float block_sum(float (&v)[V],
     for (int wp = 0; wp < W; ++wp) total += s_warp[wp][threadIdx.x];
   }
   return total;
+}
+
+// One (pose, point) pair of kernels 1 and 2 and of the Newton kernel,
+// the point's feature f given: the (2r+1)^2 window cells around its
+// cell, dx outer and dy inner, both ascending. v (zeros on entry) takes
+// the pair's values, left at 0 where the point's cell lies off the
+// window's range. Every kernel that scores a pose goes through here, so
+// a pair's bits are the same in all of them. The table and slot map are
+// read through the read-only cache.
+template <bool kDerivs>
+__device__ __forceinline__ void window_visit(
+    const Window& w, const GridView& gv, const Feature& f,
+    float (&v)[kDerivs ? kSghValues : 1]) {
+  // Range test in float, before the conversion: a masked slot sits at
+  // 1e8 and a diverged pose may be NaN or inf (every comparison with
+  // NaN is false).
+  const float r = (float)w.r;
+  if (!(f.fx >= -r && f.fx <= (float)(w.nx - 1) + r &&
+        f.fy >= -r && f.fy <= (float)(w.ny - 1) + r))
+    return;
+  const int cx = (int)f.fx, cy = (int)f.fy;
+  float se = 0.f, sw = 0.f, gqx = 0.f, gqy = 0.f;
+  float h00 = 0.f, h01 = 0.f, h11 = 0.f;
+  for (int dx = -w.r; dx <= w.r; ++dx) {
+    const int gx = cx + dx;
+    if (gx < 0 || gx >= w.nx) continue;
+    for (int dy = -w.r; dy <= w.r; ++dy) {
+      const int gy = cy + dy;
+      if (gy < 0 || gy >= w.ny) continue;
+      const int slot = __ldg(gv.cell_slot + gx * w.ny + gy);
+      if (slot < 0) continue;
+      const float4 t0 = __ldg(gv.table + 2 * slot);
+      const float4 t1 = __ldg(gv.table + 2 * slot + 1);
+      const float qx = f.px - t0.z;
+      const float qy = f.py - t0.w;
+      const float b00 = t1.x, b01 = t1.y, b11 = t1.z;
+      const float bqx = b00 * qx + b01 * qy;
+      const float bqy = b01 * qx + b11 * qy;
+      const float md = qx * bqx + qy * bqy;
+      const float e = expf(w.neg_half_d2 * fminf(md, w.md_cap));
+      se += e;
+      if constexpr (kDerivs) {
+        const float coef = w.coef_scale * e;
+        sw += 1.f;
+        gqx += coef * bqx;
+        gqy += coef * bqy;
+        h00 += coef * (b00 - w.d2 * bqx * bqx);
+        h01 += coef * (b01 - w.d2 * bqx * bqy);
+        h11 += coef * (b11 - w.d2 * bqy * bqy);
+      }
+    }
+  }
+  v[0] = w.d1 * se;
+  if constexpr (kDerivs) {
+    // the twin's pose_terms, per point
+    const float a = -f.s * f.x - f.c * f.y;
+    const float b = f.c * f.x - f.s * f.y;
+    const float d2x = -(f.px - f.tx);
+    const float d2y = -(f.py - f.ty);
+    v[1] = sw;
+    v[2] = gqx;
+    v[3] = gqy;
+    v[4] = a * gqx + b * gqy;
+    v[5] = h00;
+    v[6] = h01;
+    v[7] = a * h00 + b * h01;
+    v[8] = h11;
+    v[9] = a * h01 + b * h11;
+    v[10] = a * a * h00 + 2.0f * a * b * h01 + b * b * h11;
+    v[11] = gqx * d2x + gqy * d2y;
+  }
 }
 
 // Kernels 1 and 2 -- replace _sgh_kernel (ndt_slam_tpu/ndt/
@@ -190,66 +278,10 @@ __global__ void window_kernel(Window w, float* __restrict__ partials) {
   for (int k = 0; k < V; ++k) v[k] = 0.f;
 
   if (gv.ok && i < w.n && gv.mask[i]) {
-    const Feature f = point_feature(w.poses + 3 * pose, gv.xy[i], gv.origin,
-                                    w.inv_res);
-    // Range test in float, before the conversion: a masked slot sits at
-    // 1e8 and a diverged pose may be NaN or inf (every comparison with
-    // NaN is false).
-    const float r = (float)w.r;
-    if (f.fx >= -r && f.fx <= (float)(w.nx - 1) + r &&
-        f.fy >= -r && f.fy <= (float)(w.ny - 1) + r) {
-      const int cx = (int)f.fx, cy = (int)f.fy;
-      float se = 0.f, sw = 0.f, gqx = 0.f, gqy = 0.f;
-      float h00 = 0.f, h01 = 0.f, h11 = 0.f;
-      for (int dx = -w.r; dx <= w.r; ++dx) {
-        const int gx = cx + dx;
-        if (gx < 0 || gx >= w.nx) continue;
-        for (int dy = -w.r; dy <= w.r; ++dy) {
-          const int gy = cy + dy;
-          if (gy < 0 || gy >= w.ny) continue;
-          const int slot = __ldg(gv.cell_slot + gx * w.ny + gy);
-          if (slot < 0) continue;
-          const float4 t0 = __ldg(gv.table + 2 * slot);
-          const float4 t1 = __ldg(gv.table + 2 * slot + 1);
-          const float qx = f.px - t0.z;
-          const float qy = f.py - t0.w;
-          const float b00 = t1.x, b01 = t1.y, b11 = t1.z;
-          const float bqx = b00 * qx + b01 * qy;
-          const float bqy = b01 * qx + b11 * qy;
-          const float md = qx * bqx + qy * bqy;
-          const float e = expf(w.neg_half_d2 * fminf(md, w.md_cap));
-          se += e;
-          if constexpr (kDerivs) {
-            const float coef = w.coef_scale * e;
-            sw += 1.f;
-            gqx += coef * bqx;
-            gqy += coef * bqy;
-            h00 += coef * (b00 - w.d2 * bqx * bqx);
-            h01 += coef * (b01 - w.d2 * bqx * bqy);
-            h11 += coef * (b11 - w.d2 * bqy * bqy);
-          }
-        }
-      }
-      v[0] = w.d1 * se;
-      if constexpr (kDerivs) {
-        // the twin's pose_terms, per point
-        const float a = -f.s * f.x - f.c * f.y;
-        const float b = f.c * f.x - f.s * f.y;
-        const float d2x = -(f.px - f.tx);
-        const float d2y = -(f.py - f.ty);
-        v[1] = sw;
-        v[2] = gqx;
-        v[3] = gqy;
-        v[4] = a * gqx + b * gqy;
-        v[5] = h00;
-        v[6] = h01;
-        v[7] = a * h00 + b * h01;
-        v[8] = h11;
-        v[9] = a * h01 + b * h11;
-        v[10] = a * a * h00 + 2.0f * a * b * h01 + b * b * h11;
-        v[11] = gqx * d2x + gqy * d2y;
-      }
-    }
+    const float* p = w.poses + 3 * pose;
+    const Feature f = point_feature(p[0], p[1], cosf(p[2]), sinf(p[2]),
+                                    gv.xy[i], gv.origin, w.inv_res);
+    window_visit<kDerivs>(w, gv, f, v);
   }
   const float total = block_sum<V>(v, s_warp);
   if (threadIdx.x < V)
@@ -294,9 +326,376 @@ __global__ void window_sum_kernel(const float* __restrict__ partials,
 __global__ void features_kernel(Window w, float4* __restrict__ out) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= w.n) return;
-  const Feature f = point_feature(w.poses + 3 * blockIdx.y, w.xy[i],
-                                  w.origin, w.inv_res);
+  const float* p = w.poses + 3 * blockIdx.y;
+  const Feature f = point_feature(p[0], p[1], cosf(p[2]), sinf(p[2]),
+                                  w.xy[i], w.origin, w.inv_res);
   out[blockIdx.y * w.n + i] = make_float4(f.px, f.py, f.fx, f.fy);
+}
+
+// The Newton kernel's operands beyond the Window: the loop's settings
+// and the row outputs (every field of ndt/solve.py's NDTResult).
+struct Newton {
+  int max_iterations;
+  bool matvec;               // one pose a call (no grid index): _solve3's
+                             // matrix-vector form
+  float step_size, trans_eps;
+  float* pose;               // [rows, 3]
+  int* iterations;           // [rows]
+  unsigned char* usable;     // [rows] bool
+  float* objective;          // [rows]
+  float* hessian;            // [rows, 3, 3]
+  float* matched;            // [rows]
+};
+
+// torch's elementwise operations where C's differ: a clamp and a
+// maximum that carry a NaN (fmaxf / fminf drop it), isfinite.
+__device__ __forceinline__ float t_clamp_min(float x, float lo) {
+  return x != x ? x : fmaxf(x, lo);
+}
+__device__ __forceinline__ float t_clamp_max(float x, float hi) {
+  return x != x ? x : fminf(x, hi);
+}
+__device__ __forceinline__ float t_maximum(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ bool t_finite(float v) {
+  return fabsf(v) < INFINITY;
+}
+
+// torch.linalg.vector_norm of a 3-vector on the card: its reduction
+// splits the 3 elements over two lanes (lane 0 takes elements 0 and 2,
+// lane 1 element 1) and adds the lanes after, each square rounded once.
+__device__ __forceinline__ float t_norm3(float a, float b, float c) {
+  return sqrtf((a * a + c * c) + b * b);
+}
+
+// solve.py's _clamp_norm of one 3-vector: v scaled to a norm of at most
+// step_size.
+__device__ __forceinline__ void t_clamp_norm(const float (&v)[3],
+                                             float step_size,
+                                             float (&out)[3]) {
+  const float nrm = t_norm3(v[0], v[1], v[2]);
+  const float ratio = t_clamp_max(nrm, step_size) / t_clamp_min(nrm, 1e-12f);
+#pragma unroll
+  for (int a = 0; a < 3; ++a) out[a] = v[a] * ratio;
+}
+
+// One Newton iteration's two search directions from kernel 1's sums s
+// (E, matched, grad[3], the Hessian's parts as window_sum_kernel reads
+// them): solve.py's _sym3_eig_bounds, the Levenberg ridge, _solve3,
+// the non-finite guard, then _clamp_norm of the damped Newton step and
+// of the steepest descent. Written out as the stepwise loop runs it in
+// torch, one rounding an operation: a division by a host scalar is
+// torch's product with the f32 reciprocal, x * 0 and x - 0 are kept
+// (they turn inf into NaN and -0 into +0 there too). _solve3 takes two
+// forms there: rows write the products out; one pose takes torch's
+// [3,3] @ [3] on the card, which rounds as fma(a1, b1, a0 * b0) + a2 *
+// b2 (matvec; probed on 20000 random products of wide range, every bit
+// equal).
+__device__ __noinline__ void newton_directions(const float* s,
+                                               float step_size, bool matvec,
+                                               float (&dirs)[2][3]) {
+  constexpr float kThird = 1.f / 3.f;
+  constexpr float kSixth = 1.f / 6.f;
+  constexpr float kTwoPiThirds = (float)(2.0 * 3.141592653589793 / 3.0);
+  const float g[3] = {s[2], s[3], s[4]};
+  const float H[3][3] = {{s[5], s[6], s[7]},
+                         {s[6], s[8], s[9]},
+                         {s[7], s[9], s[10] + s[11]}};
+  // _sym3_eig_bounds: Smith's closed form
+  const float q = ((H[0][0] + H[1][1]) + H[2][2]) * kThird;
+  const float p1 = (H[0][1] * H[0][1] + H[0][2] * H[0][2]) + H[1][2] * H[1][2];
+  const float a0 = H[0][0] - q, a1 = H[1][1] - q, a2 = H[2][2] - q;
+  const float p2 = ((a0 * a0 + a1 * a1) + a2 * a2) + 2.0f * p1;
+  const float p = sqrtf(t_clamp_min(p2 * kSixth, 0.f));
+  const float safe_p = t_clamp_min(p, 1e-20f);
+  float B[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      B[i][j] = (H[i][j] - q * (i == j ? 1.f : 0.f)) / safe_p;
+  const float detB =
+      (B[0][0] * (B[1][1] * B[2][2] - B[1][2] * B[2][1]) -
+       B[0][1] * (B[1][0] * B[2][2] - B[1][2] * B[2][0])) +
+      B[0][2] * (B[1][0] * B[2][1] - B[1][1] * B[2][0]);
+  const float r = t_clamp_max(t_clamp_min(detB * 0.5f, -1.f), 1.f);
+  const float phi = acosf(r) * kThird;
+  const float two_p = 2.0f * p;
+  float e_max = q + two_p * cosf(phi);
+  float e_min = q + two_p * cosf(phi + kTwoPiThirds);
+  e_max = p2 > 0.f ? e_max : q;
+  e_min = p2 > 0.f ? e_min : q;
+  const float e_absmax = t_maximum(fabsf(e_min), fabsf(e_max));
+  // the Levenberg ridge
+  const float abs_max = t_clamp_min(e_absmax, 1e-6f);
+  const float lam = e_min < 0.001f * abs_max
+                        ? -t_clamp_max(e_min, 0.f) + 0.01f * abs_max
+                        : 0.f;
+  float A[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) A[i][j] = H[i][j] + lam * (i == j ? 1.f : 0.f);
+  // _solve3, the adjugate
+  const float c00 = A[1][1] * A[2][2] - A[1][2] * A[2][1];
+  const float c01 = A[1][2] * A[2][0] - A[1][0] * A[2][2];
+  const float c02 = A[1][0] * A[2][1] - A[1][1] * A[2][0];
+  const float det = (A[0][0] * c00 + A[0][1] * c01) + A[0][2] * c02;
+  const float c10 = A[0][2] * A[2][1] - A[0][1] * A[2][2];
+  const float c11 = A[0][0] * A[2][2] - A[0][2] * A[2][0];
+  const float c12 = A[0][1] * A[2][0] - A[0][0] * A[2][1];
+  const float c20 = A[0][1] * A[1][2] - A[0][2] * A[1][1];
+  const float c21 = A[0][2] * A[1][0] - A[0][0] * A[1][2];
+  const float c22 = A[0][0] * A[1][1] - A[0][1] * A[1][0];
+  const float inv_det = fabsf(det) > 1e-30f ? 1.f / det : 0.f;
+  const float adj[3][3] = {{c00, c10, c20}, {c01, c11, c21},
+                           {c02, c12, c22}};
+  float x[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+    x[a] = matvec ? __fmaf_rn(adj[a][1], g[1], adj[a][0] * g[0]) +
+                        adj[a][2] * g[2]
+                  : (adj[a][0] * g[0] + adj[a][1] * g[1]) + adj[a][2] * g[2];
+  float step[3], descent[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float v = -(inv_det * x[a]);
+    step[a] = t_finite(v) ? v : 0.f;
+    descent[a] = -g[a];
+  }
+  t_clamp_norm(step, step_size, dirs[0]);
+  t_clamp_norm(descent, step_size, dirs[1]);
+}
+
+// One phase of a Newton iteration, every thread of the block: the
+// warp tasks (pose p of `poses` from s_pose[pose0], live chunk li), a
+// lane a source slot through window_visit, the chunk's sums by warp_sum
+// into part: [live][kSghValues] with kDerivs, else [poses][live].
+template <bool kDerivs>
+__device__ __forceinline__ void newton_tasks(
+    const Window& w, const GridView& gv, float (*s_pose)[4], const int* s_live, const unsigned* s_bits,
+    int live, int poses, int pose0, float* part) {
+  constexpr int V = kDerivs ? kSghValues : 1;
+  const int lane = threadIdx.x & 31;
+  const int tasks = poses * live;
+  for (int t = threadIdx.x >> 5; t < tasks; t += kNewtonWarps) {
+    const int p = t / live, li = t - p * live;
+    float v[V];
+#pragma unroll
+    for (int k = 0; k < V; ++k) v[k] = 0.f;
+    if ((s_bits[li] >> lane) & 1u) {
+      const float* q = s_pose[pose0 + p];
+      const Feature f = point_feature(q[0], q[1], q[2], q[3],
+                                      gv.xy[s_live[li] * 32 + lane],
+                                      gv.origin, w.inv_res);
+      window_visit<kDerivs>(w, gv, f, v);
+    }
+    warp_sum<V>(v);
+    if (lane == 0) {
+      if constexpr (kDerivs) {
+#pragma unroll
+        for (int k = 0; k < V; ++k) part[li * V + k] = v[k];
+      } else {
+        part[p * live + li] = v[0];
+      }
+    }
+  }
+}
+
+// A pose's sum of one value over the live chunks' sums part[li * stride]
+// in the order of kernels 1 and 2: the chunks of a 128-slot tile in
+// order from +0 (block_sum), the tiles in order from +0
+// (window_sum_kernel). A chunk or tile without a live point, which those
+// kernels add as +0, is left out: adding +0 to a sum that started at +0
+// changes no bit.
+__device__ __forceinline__ float tile_ordered_sum(const float* part,
+                                                  int stride,
+                                                  const int* s_live,
+                                                  int live) {
+  float acc = 0.f;
+  int li = 0;
+  while (li < live) {
+    const int tile = s_live[li] / kWinWarps;
+    float t = 0.f;
+    do {
+      t += part[li * stride];
+      ++li;
+    } while (li < live && s_live[li] / kWinWarps == tile);
+    acc += t;
+  }
+  return acc;
+}
+
+// The Newton kernel -- replaces no Pallas kernel: it runs the whole loop
+// of ndt/solve.py's `align` (the JAX package's lax.while_loop around
+// _sgh_kernel and _score_many_kernel) for R rows in one launch, the
+// stop included, where the stepwise loop runs ~60 tensor operations,
+// kernels 1 and 2 and a host read of the done flag every second
+// iteration.
+//
+// What bounds it on this card: neither bytes nor operations (an
+// iteration of a row is 13 poses x the live source points x 9 window
+// cells: ~0.3 MB and a few hundred thousand f32 operations at full load)
+// but latency: the chain of a slot, two table reads and an expf a cell,
+// and the iteration's own chain (the sums, the 3x3 algebra, the line
+// search's argmin, the next pose), which no parallelism shortens.
+//
+// What the design does about it.
+// - One block a row, kNewtonThreads threads, resident for the whole
+//   solve: no launch, no host read and no tensor operation between
+//   iterations. A row that is done leaves the loop; its pose and count
+//   are those of the masked loop, where a done row never changes.
+// - The table and slot map read through the read-only cache, as
+//   kernels 1 and 2 read them. Staging them in shared memory (211 KB at
+//   the production window) measured no faster at the cells' loads: the
+//   same time at one iteration, 8-12 % less kernel time only from
+//   several iterations on, microseconds a scan.
+// - Warp tasks: (pose, 32-slot chunk) pairs over the chunks that hold a
+//   live source point, found once from the mask, dealt to the warps in
+//   turn. A dead chunk costs nothing.
+// - The sums in the order of kernels 1 and 2 (tile_ordered_sum), every
+//   pair through window_visit: E, the gradient, the Hessian and the 12
+//   line-search scores are those of ndt_sgh and ndt_score_many at the
+//   same pose, bit for bit.
+// - The 3x3 algebra in one thread, operation for operation as the
+//   stepwise loop runs it (newton_directions), the candidates' poses
+//   and the step broadcast through shared memory.
+__global__ void __launch_bounds__(kNewtonThreads, 1)
+newton_kernel(Window w, Newton nt) {
+  extern __shared__ float s_dyn[];
+  __shared__ float s_pose[1 + kCands][4];   // tx, ty, cos, sin of a pose
+  __shared__ float s_cand_th[kCands];
+  __shared__ float s_sum[kSghValues];
+  __shared__ float s_ec[kCands];
+  __shared__ int s_nlive, s_stop;
+
+  const int row = blockIdx.x, tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const GridView gv = grid_view(w, row);
+  const int chunks = (w.n + 31) / 32;
+  // the pose's partials [chunks][12], the candidates' [12][chunks], the
+  // live chunks, their mask bits: newton_smem_bytes
+  float* s_part = s_dyn;
+  float* s_cpart = s_part + chunks * kSghValues;
+  int* s_live = (int*)(s_cpart + kCands * chunks);
+  unsigned* s_bits = (unsigned*)(s_live + chunks);
+  // the mask bits of each chunk, a warp a chunk
+  for (int c = warp; c < chunks; c += kNewtonWarps) {
+    const int i = c * 32 + lane;
+    const unsigned bits =
+        __ballot_sync(0xffffffffu, gv.ok && i < w.n && gv.mask[i] != 0);
+    if (lane == 0) s_bits[c] = bits;
+  }
+  // the row's state, held by thread 0
+  float px = 0.f, py = 0.f, pth = 0.f;
+  int it = 0, n_src = 0;
+  bool done = false;
+  float cand_step[kCands][3];
+  __syncthreads();
+  if (tid == 0) {
+    int live = 0;
+    for (int c = 0; c < chunks; ++c) {
+      const unsigned bits = s_bits[c];
+      n_src += __popc(bits);
+      if (bits != 0u) {
+        s_bits[live] = bits;
+        s_live[live++] = c;
+      }
+    }
+    s_nlive = live;
+    const float* p = w.poses + 3 * row;
+    px = p[0];
+    py = p[1];
+    pth = p[2];
+    s_pose[0][0] = px;
+    s_pose[0][1] = py;
+    s_pose[0][2] = cosf(pth);
+    s_pose[0][3] = sinf(pth);
+  }
+  __syncthreads();
+  const int live = s_nlive;
+
+  for (;;) {
+    // score, gradient and Hessian at the pose: the next iteration's, or
+    // the final derivatives once the row is done
+    newton_tasks<true>(w, gv, s_pose, s_live, s_bits, live, 1, 0, s_part);
+    __syncthreads();
+    if (tid < kSghValues)
+      s_sum[tid] = tile_ordered_sum(s_part + tid, kSghValues, s_live, live);
+    __syncthreads();
+    if (tid == 0) {
+      const int stop = done || it >= nt.max_iterations;
+      s_stop = stop;
+      if (!stop) {
+        float dirs[2][3];
+        newton_directions(s_sum, nt.step_size, nt.matvec, dirs);
+        for (int j = 0; j < kCands; ++j) {
+          const float scale = kLsScales[j / 2];
+#pragma unroll
+          for (int a = 0; a < 3; ++a) cand_step[j][a] = scale * dirs[j % 2][a];
+          s_pose[1 + j][0] = px + cand_step[j][0];
+          s_pose[1 + j][1] = py + cand_step[j][1];
+          s_cand_th[j] = pth + cand_step[j][2];
+        }
+      }
+    }
+    __syncthreads();
+    if (s_stop) break;
+    if (tid < kCands) {
+      s_pose[1 + tid][2] = cosf(s_cand_th[tid]);
+      s_pose[1 + tid][3] = sinf(s_cand_th[tid]);
+    }
+    __syncthreads();
+    // the 12 line-search candidates
+    newton_tasks<false>(w, gv, s_pose, s_live, s_bits, live, kCands, 1,
+                        s_cpart);
+    __syncthreads();
+    if (tid < kCands)
+      s_ec[tid] = tile_ordered_sum(s_cpart + tid * live, 1, s_live, live);
+    __syncthreads();
+    if (tid == 0) {
+      // torch.argmin: a NaN first, else the least, the lower index on a
+      // tie
+      int best = 0;
+      for (int j = 1; j < kCands; ++j) {
+        const float a = s_ec[j], b = s_ec[best];
+        if (a != a ? b == b : (b == b && a < b)) best = j;
+      }
+      const bool improved = s_ec[best] < s_sum[0];
+      const float on = improved ? 1.f : 0.f;
+      const float ax = on * cand_step[best][0];
+      const float ay = on * cand_step[best][1];
+      const float ath = on * cand_step[best][2];
+      done = !improved || t_norm3(ax, ay, ath) < nt.trans_eps ||
+             s_sum[1] < 1.f;
+      px = px + ax;
+      py = py + ay;
+      pth = pth + ath;
+      ++it;
+      s_pose[0][0] = px;
+      s_pose[0][1] = py;
+      s_pose[0][2] = cosf(pth);
+      s_pose[0][3] = sinf(pth);
+    }
+    __syncthreads();
+  }
+  if (tid == 0) {
+    nt.pose[3 * row] = px;
+    nt.pose[3 * row + 1] = py;
+    nt.pose[3 * row + 2] = pth;
+    nt.iterations[row] = it;
+    nt.usable[row] = s_sum[1] >= 1.f && n_src >= 1 && t_finite(px) &&
+                     t_finite(py) && t_finite(pth);
+    nt.objective[row] = s_sum[0];
+    nt.matched[row] = s_sum[1];
+    // the Hessian as window_sum_kernel lays it out
+    const float h[9] = {s_sum[5], s_sum[6], s_sum[7],
+                        s_sum[6], s_sum[8], s_sum[9],
+                        s_sum[7], s_sum[9], s_sum[10] + s_sum[11]};
+#pragma unroll
+    for (int a = 0; a < 9; ++a) nt.hessian[9 * row + a] = h[a];
+  }
 }
 
 // Launched alone to time what a launch costs on this card.
@@ -828,6 +1227,13 @@ Window make_window(const float* xy, const unsigned char* mask,
                 d2};
 }
 
+// Dynamic shared memory of a Newton launch: the partials and the
+// live-chunk lists of n source slots (6.5 KB at 2048).
+size_t newton_smem_bytes(int n) {
+  const size_t chunks = (size_t)(n + 31) / 32;
+  return chunks * (kSghValues + kCands) * 4 + chunks * 8;
+}
+
 }  // namespace
 
 extern "C" {
@@ -862,6 +1268,37 @@ int ndt_score_many(const float* xy, const unsigned char* mask,
                                cell_slot, n, nx, ny, r, k, grids, src_stride,
                                inv_res, d1, neg_half_d2, md_cap, 0.f, 0.f);
   return window_launch(w, n_poses, false, partials, out, stream);
+}
+
+// The whole Newton solve of `rows` rows in one launch: row r from
+// poses[r] against grid grid_of[r] (grid 0 for every row when grid_of
+// is null, and the 3x3 solve in one pose's form) and its source row,
+// the operands as for ndt_sgh (xy [rows or 1, n, 2] at src_stride). Out: pose [rows, 3], iterations [rows],
+// usable [rows] (bool), objective [rows], hessian [rows, 3, 3], matched
+// [rows].
+int ndt_newton(const float* xy, const unsigned char* mask,
+               const float* poses, const int* grid_of, const float* origin,
+               const float* table, const int* cell_slot, float* pose_out,
+               int* iterations, unsigned char* usable, float* objective,
+               float* hessian, float* matched, int n, int rows, int nx,
+               int ny, int r, int k, int grids, int src_stride,
+               float inv_res, float d1, float neg_half_d2, float md_cap,
+               float coef_scale, float d2, int max_iterations,
+               float step_size, float trans_eps, void* stream) {
+  if (rows < 1 || n < 0 || r < 0 || k < 0 || grids < 1 || src_stride < 0 ||
+      max_iterations < 0)
+    return (int)cudaErrorInvalidValue;
+  const Window w = make_window(xy, mask, poses, grid_of, origin, table,
+                               cell_slot, n, nx, ny, r, k, grids, src_stride,
+                               inv_res, d1, neg_half_d2, md_cap, coef_scale,
+                               d2);
+  const Newton nt{max_iterations, grid_of == nullptr, step_size, trans_eps,
+                  pose_out, iterations, usable, objective, hessian, matched};
+  // past the 48 KB of shared memory a launch takes unasked (over
+  // ~15000 source slots) the launch is refused
+  newton_kernel<<<rows, kNewtonThreads, newton_smem_bytes(n),
+                  (cudaStream_t)stream>>>(w, nt);
+  return (int)cudaGetLastError();
 }
 
 // out [poses, n, 4] = (px, py, fx, fy).

@@ -28,12 +28,20 @@ For the lockstep batch runner (`pipeline/batch_runner.py`; in JAX a
 |-------------------------|-------------------------------------|------------|
 | `fitness_score_batched` | kernel 3 with a batch axis, the mean a row | `fitness.fitness_score_plain` over the batch |
 
+One kernel replaces no Pallas kernel but the loop around two of them,
+the `lax.while_loop` of `ndt_slam_tpu/ndt/solve.py`'s `align`:
+
+| wrapper      | kernel                                        | plain twin |
+|--------------|-----------------------------------------------|------------|
+| `ndt_newton` | `newton_kernel`: the whole Newton solve of R rows, one block a row, through kernel 1 and 2's pair visit | the stepwise loop of `solve.align` |
+
 The device of the input tensors picks the route: a CPU tensor runs the
 twin; a CUDA tensor launches the kernel or raises. There is no
-fallback. Each wrapper counts its calls that launched in `.launches`;
-`launch_counts()` adds the wrappers of one kernel up under its name
-(`sgh`, `score_many`, `nn`), `wrapper_launch_counts()` gives each
-wrapper's own count.
+fallback. (`ndt_newton` takes CUDA tensors only: `solve.align` routes,
+and runs its stepwise loop for CPU tensors.) Each wrapper counts its
+calls that launched in `.launches`; `launch_counts()` adds the wrappers
+of one kernel up under its name (`sgh`, `score_many`, `nn`, `newton`),
+`wrapper_launch_counts()` gives each wrapper's own count.
 
 The first two kernels are bound on the card by latency, not by bytes or
 operations: a call touches ~0.3 MB and ~9 table cells a point. The TPU
@@ -65,6 +73,15 @@ clamps, applies the source mask and, for `fitness_score`, sums the
 valid sources in a fixed order across one cluster of 8 blocks. Both
 entry points are two launches and no tensor operation, and `[N]` equals
 the twin bit for bit.
+
+The Newton kernel is bound by latency as kernels 1 and 2 are, and by
+the iteration's own chain: the stepwise loop around them ran ~60
+tensor operations, four launches and a host read of the done flag every
+second iteration for a few microseconds of work. One block a row runs
+every iteration, the stop and the final derivatives on the card; every
+pair goes through the visit kernels 1 and 2 use and every sum runs in
+their order, so the scores are theirs bit for bit and the 3x3 algebra
+is the stepwise loop's, operation for operation (`csrc/ndt_kernels.cu`).
 
 The library is built at first use by nvcc (sm_90a, no fast math, no
 FMA contraction) into `build/kernels/` at the repository root, keyed by
@@ -162,9 +179,11 @@ def _load() -> ctypes.CDLL:
         lib.ndt_score_many.argtypes = window + [p]
         lib.ndt_features.argtypes = [p, p, p, p, i, i, f, p]
         lib.ndt_nn.argtypes = [p] * 10 + [i] * 4 + [p]
+        lib.ndt_newton.argtypes = (window[:7] + [p] * 6 + window[9:]
+                                   + [f, f, i, f, f, p])
         lib.ndt_empty.argtypes = [p]
         for fn in (lib.ndt_sgh, lib.ndt_score_many, lib.ndt_features,
-                   lib.ndt_nn, lib.ndt_empty):
+                   lib.ndt_nn, lib.ndt_newton, lib.ndt_empty):
             fn.restype = i
         sizes = []
         for fn in (lib.ndt_window_threads, lib.ndt_max_poses,
@@ -217,14 +236,13 @@ def _inv_resolution(resolution: float) -> float:
     return float(np.float32(1.0) / np.float32(resolution))
 
 
-def _launch_window(name: str, poses, grid_of, xy, mask, grids, d1: float,
-                   d2: float, radius: int, values: int, out_shape: tuple,
-                   tail: tuple = ()) -> torch.Tensor:
-    """Check the operands `ndt_sgh` and `ndt_score_many` share, allocate
-    the output and the per-block partial sums, launch; returns the
-    output. `grids` is one `CompactGrid` (with `grid_of` None) or a
-    `GridStack` (with `grid_of` [poses] int32); `xy` [N,2] / `mask` [N]
-    is one source, [G,N,2] / [G,N] a source row per grid."""
+def _window_operands(poses, grid_of, xy, mask, grids, d1: float, d2: float,
+                     radius: int):
+    """Check the operands `ndt_sgh`, `ndt_score_many` and `ndt_newton`
+    share; returns their checked pointers (before the outputs) and
+    scalars (after them). `grids` is one `CompactGrid` (with `grid_of`
+    None) or a `GridStack` (with `grid_of` [poses] int32); `xy` [N,2] /
+    `mask` [N] is one source, [G,N,2] / [G,N] a source row per grid."""
     if isinstance(grids, GridStack):
         g, lead = grids.grids, (grids.grids,)
     elif grids.table is None or grids.cell_slot is None:
@@ -239,21 +257,34 @@ def _launch_window(name: str, poses, grid_of, xy, mask, grids, d1: float,
     rows = xy.dim() == 3
     if rows and xy.shape[0] != g:
         raise ValueError(f"{xy.shape[0]} source rows for {g} grids")
-    blocks = -(-n // WINDOW_THREADS)
-    partials = torch.empty((nc, blocks, values), dtype=torch.float32,
-                           device=xy.device)
-    out = torch.empty(out_shape, dtype=torch.float32, device=xy.device)
     src_lead = (g,) if rows else ()
-    _check(getattr(_load(), "ndt_" + name)(
+    pointers = (
         _arg(xy, (*src_lead, n, 2)), _arg(mask, (*src_lead, n), torch.bool),
         _arg(poses, (nc, 3)),
         None if grid_of is None else _arg(grid_of, (nc,), torch.int32),
         _arg(grids.origin, (*lead, 2)), _arg(grids.table, (*lead, k, 8)),
-        _arg(grids.cell_slot, (*lead, grids.nx * grids.ny), torch.int32),
-        partials.data_ptr(), out.data_ptr(),
-        n, nc, grids.nx, grids.ny, int(radius), k, g, n if rows else 0,
-        _inv_resolution(grids.resolution), float(d1), -0.5 * d2, 50.0 / d2,
-        *tail, _stream(xy),
+        _arg(grids.cell_slot, (*lead, grids.nx * grids.ny), torch.int32))
+    scalars = (n, nc, grids.nx, grids.ny, int(radius), k, g, n if rows else 0,
+               _inv_resolution(grids.resolution), float(d1), -0.5 * d2,
+               50.0 / d2)
+    return pointers, scalars
+
+
+def _launch_window(name: str, poses, grid_of, xy, mask, grids, d1: float,
+                   d2: float, radius: int, values: int, out_shape: tuple,
+                   tail: tuple = ()) -> torch.Tensor:
+    """Check the operands of `ndt_sgh` or `ndt_score_many`
+    (`_window_operands`), allocate the output and the per-block partial
+    sums, launch; returns the output."""
+    pointers, scalars = _window_operands(poses, grid_of, xy, mask, grids, d1,
+                                         d2, radius)
+    blocks = -(-xy.shape[-2] // WINDOW_THREADS)
+    partials = torch.empty((poses.shape[0], blocks, values),
+                           dtype=torch.float32, device=xy.device)
+    out = torch.empty(out_shape, dtype=torch.float32, device=xy.device)
+    _check(getattr(_load(), "ndt_" + name)(
+        *pointers, partials.data_ptr(), out.data_ptr(), *scalars, *tail,
+        _stream(xy),
     ), name)
     return out
 
@@ -339,6 +370,40 @@ def ndt_scores_grids(poses_rad, grid_index, xy, mask, gs: GridStack,
                          d1, d2, radius, 1, (poses_rad.shape[0],))
     ndt_scores_grids.launches += 1
     return out
+
+
+def ndt_newton(poses_rad, grid_index, xy, mask, grids, d1: float,
+               d2: float, radius: int, max_iterations: int, step_size: float,
+               trans_eps: float):
+    """The whole Newton solve of `solve.align` for R rows in one launch:
+    row r from pose [R,3] against grid `grid_index[r]` (int32 [R]) of
+    the `GridStack` `grids`, or every row against the `CompactGrid`
+    `grids` with `grid_index` None (the 3x3 solve then in one pose's
+    form, torch's matrix-vector product); `xy` / `mask` as for
+    `ndt_score_grad_hess_grids`. Returns (pose [R,3], iterations int32
+    [R], usable bool [R], objective [R], hessian [R,3,3], matched [R]),
+    the fields of `solve.NDTResult`.
+
+    CUDA only: `newton_kernel`, one block a row, the loop, its stop and
+    the final derivatives on the card. Its plain twin is the stepwise
+    loop of `solve.align`, which CPU tensors take."""
+    pointers, scalars = _window_operands(poses_rad, grid_index, xy, mask,
+                                         grids, d1, d2, radius)
+    r, dev = poses_rad.shape[0], xy.device
+    pose = torch.empty((r, 3), dtype=torch.float32, device=dev)
+    iterations = torch.empty((r,), dtype=torch.int32, device=dev)
+    usable = torch.empty((r,), dtype=torch.bool, device=dev)
+    objective = torch.empty((r,), dtype=torch.float32, device=dev)
+    hessian = torch.empty((r, 3, 3), dtype=torch.float32, device=dev)
+    matched = torch.empty((r,), dtype=torch.float32, device=dev)
+    _check(_load().ndt_newton(
+        *pointers, pose.data_ptr(), iterations.data_ptr(), usable.data_ptr(),
+        objective.data_ptr(), hessian.data_ptr(), matched.data_ptr(),
+        *scalars, -d1 * d2, float(d2), int(max_iterations), float(step_size),
+        float(trans_eps), _stream(xy),
+    ), "newton")
+    ndt_newton.launches += 1
+    return pose, iterations, usable, objective, hessian, matched
 
 
 def kernel_point_features(poses_rad, xy, cg: CompactGrid) -> torch.Tensor:
@@ -515,6 +580,7 @@ WRAPPERS = {
     "score_many": (ndt_scores, ndt_scores_grids),
     "nn": (nn_sq_dists, fitness_score, nn_sq_dists_batched, nn_argmin,
            fitness_score_batched),
+    "newton": (ndt_newton,),
 }
 
 

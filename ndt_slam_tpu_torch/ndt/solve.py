@@ -8,17 +8,23 @@ descent) x 6 step scales = 12 candidate poses scored in one
 `kernels.ndt_scores` call. The loop ends when the applied step norm
 drops below `trans_eps`, no candidate improves, or nothing matched.
 
-`lax.while_loop` has no counterpart here. The loop keeps its `done`
-flag on the device and updates pose and iteration count under the mask
-`~done`, so the result equals the JAX loop's whatever the host does.
-The host reads the flag only every `DONE_POLL` iterations (one sync)
-to stop early; between two reads at most DONE_POLL-1 iterations run
-masked after convergence.
+On CUDA tensors against a `CompactGrid` (or rows on a `GridStack`),
+without `axis`, the whole loop is one launch of `kernels.ndt_newton`:
+the iterations, the stop and the final derivatives run on the card, a
+block a row, and the host reads nothing until the caller does.
 
-The engine follows the grid's type, as in the JAX package: a
-`CompactGrid` (or `GridStack`) takes the compact table's CUDA kernels
-(their plain twins for CPU tensors), an `NDTGrid` the dense-window
-gather engine of `ndt/score.py` (tensor code).
+Everywhere else the loop is stepwise, in tensor code around the score
+calls: on CPU tensors (the kernel's plain twin, the compact table's
+kernels' twins under it), on an `NDTGrid` (the dense-window gather
+engine of `ndt/score.py`) and with `axis` (the sums need a collective
+between iterations). `lax.while_loop` has no counterpart there. The
+loop keeps its `done` flag on the device and updates pose and
+iteration count under the mask `~done`, so the result equals the JAX
+loop's whatever the host does. The host reads the flag only every
+`DONE_POLL` iterations (one sync) to stop early; between two reads at
+most DONE_POLL-1 iterations run masked after convergence. The kernel
+stops a row where this loop stops it, and its pose and count are the
+masked loop's.
 
 A row axis stands in for the JAX package's `vmap` of `align` (the
 loop-closure verifier's coarse starts and candidates, the lockstep
@@ -52,7 +58,7 @@ from ndt_slam_tpu_torch.ndt import score as gather
 from ndt_slam_tpu_torch.ndt.compact import CompactGrid, GridStack
 from ndt_slam_tpu_torch.ndt.grid import NDTGrid
 from ndt_slam_tpu_torch.ndt.kernels import (
-    ndt_score_grad_hess, ndt_score_grad_hess_grids, ndt_scores,
+    ndt_newton, ndt_score_grad_hess, ndt_score_grad_hess_grids, ndt_scores,
     ndt_scores_grids,
 )
 
@@ -61,6 +67,20 @@ _LS_SCALES = np.array([1.0, 0.5, 0.25, 0.1, 0.04, 0.015], dtype=np.float32)
 
 # Host reads of the device-side done flag: every DONE_POLL iterations.
 DONE_POLL = 2
+
+# Calls of the stepwise loop on CUDA tensors (the gather engine, the
+# sharded solve): `stepwise_cuda_calls()`, `reset_stepwise_count()`.
+_stepwise_cuda = 0
+
+
+def stepwise_cuda_calls() -> int:
+    """Calls of `align` on CUDA tensors that took the stepwise loop."""
+    return _stepwise_cuda
+
+
+def reset_stepwise_count():
+    global _stepwise_cuda
+    _stepwise_cuda = 0
 
 
 def _sym3_eig_bounds(H):
@@ -168,6 +188,28 @@ def align(init_pose_rad, src_xy, src_mask,
     R rows [R,3], row r against grid `grid_index[r]` (int32 [R]) of a
     `GridStack` or a stacked `NDTGrid`. With `axis`, `src` is this
     rank's shard and every reduction is summed over the axis."""
+    global _stepwise_cuda
+    lead = init_pose_rad.shape[:-1]
+    if (axis is None and src_xy.is_cuda
+            and isinstance(grid, GridStack if lead else CompactGrid)):
+        if lead and grid_index is None:
+            raise ValueError("align over rows takes a grid index per row")
+        out = ndt_newton(
+            init_pose_rad.to(torch.float32).reshape(-1, 3).contiguous(),
+            grid_index, src_xy, src_mask, grid, d1, d2, radius,
+            max_iterations, step_size, trans_eps)
+        return NDTResult(*(f if lead else f[0] for f in out))
+    if src_xy.is_cuda:
+        _stepwise_cuda += 1
+    return _align_stepwise(init_pose_rad, src_xy, src_mask, grid, d1, d2,
+                           max_iterations, step_size, trans_eps, radius,
+                           grid_index, axis)
+
+
+def _align_stepwise(init_pose_rad, src_xy, src_mask, grid, d1, d2,
+                    max_iterations, step_size, trans_eps, radius, grid_index,
+                    axis) -> NDTResult:
+    """`align` as a loop of score calls and tensor operations."""
     dev = src_xy.device
     scales = _ls_scales(dev)
     eye = torch.eye(3, dtype=torch.float32, device=dev)

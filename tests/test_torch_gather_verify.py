@@ -99,7 +99,8 @@ def port_verify():
     out = verify_candidates(
         cfg, p.xy, p.mask, p.xy[None].expand(n, -1, -1).contiguous(),
         p.mask[None].expand(n, -1).contiguous(), torch.from_numpy(init))
-    assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0}
+    assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
+                                       "newton": 0}
     return {k: v.numpy() for k, v in out._asdict().items()}
 
 

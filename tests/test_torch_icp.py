@@ -63,7 +63,8 @@ def test_icp_refine_matches_jax():
     got = icp_refine(torch.from_numpy(init), src.xy, src.mask,
                      tgt.xy[None].expand(b, -1, -1).contiguous(),
                      tgt.mask[None].expand(b, -1).contiguous())
-    assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0}
+    assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
+                                       "newton": 0}
     n_valid = int(src.mask.sum())
     for k, w in enumerate(want):
         pose = got.pose_rad[k].numpy()

@@ -278,7 +278,8 @@ def test_wrappers_take_the_twin_only_on_cpu(scene):
     kernels.ndt_score_grad_hess(torch.zeros(3), src.xy, src.mask,
                                 scene["cg"], scene["d1"], scene["d2"])
     kernels.nn_sq_dists(src.xy, src.mask, src.xy, src.mask)
-    assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0}
+    assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
+                                       "newton": 0}
     meta = torch.empty((4, 2), device="meta")
     with pytest.raises(ValueError, match="no NDT kernel route"):
         kernels.nn_sq_dists(meta, meta[:, 0] > 0, meta, meta[:, 0] > 0)
