@@ -32,6 +32,10 @@ a submap, or whose flag set differs from the tick's most common one, is
 handed back to its `FrontEnd` (`_dump_slot`), takes the per-sequence
 path and is stacked again when its flags match (`_load_slot`); a loop
 correction rebuilds the sequence's own map, which makes its slot stale.
+`counts()` says how often each of these happened; the tick's stage
+timer splits the map step into `map_fallback` (the handed-back rows'
+own path, with the stack's loads, dumps and re-inits), `map_stacked`
+(the batched step) and `map` (the rest).
 
 With a mesh the sequences are sharded over its "dp" ranks, as the JAX
 package shards the lockstep step's batch: each rank runs its contiguous
@@ -72,6 +76,19 @@ def _upload(arrays: Sequence[np.ndarray], device) -> List[torch.Tensor]:
         out.append(dev[at:at + a.nbytes].view(dtype).view(a.shape))
         at += a.nbytes
     return out
+
+
+# what `BatchFrontEnd.counts()` counts
+COUNTS = (
+    "ticks",           # process_batch calls on this rank
+    "row_ticks",       # rows computed in the batched registration step
+    "bootstrap_rows",  # rows that took FrontEnd.process (a bootstrap or
+    #                    a frame before start_frame)
+    "idle_rows",       # rows handed None
+    "slot_fallbacks",  # rows whose map update took their own add_points
+    "slot_loads",      # rows loaded into the stack
+    "stack_inits",     # stacks made anew for a new steady flag set
+)
 
 
 def _is_slot(pending) -> bool:
@@ -130,6 +147,15 @@ class BatchFrontEnd:
         self._idle_target = PointBuffer.empty(cfg.max_local_map_points,
                                               self.device)
         self.timer = StageTimer(self.device)
+        self.reset_counts()
+
+    def counts(self) -> dict:
+        """The lockstep's own counters since the last `reset_counts` (the
+        keys of `COUNTS`)."""
+        return dict(self._counts)
+
+    def reset_counts(self):
+        self._counts = dict.fromkeys(COUNTS, 0)
 
     def process_batch(self, scans_xy_local: Sequence[Optional[np.ndarray]],
                       odo_poses_deg: Sequence[Optional[np.ndarray]],
@@ -168,13 +194,17 @@ class BatchFrontEnd:
         last_np = np.zeros((B, 3), np.float32)
         cov_np = np.tile(np.eye(3, dtype=np.float32) * 1e-4, (B, 1, 1))
         compute = []   # (row, sid, resampled scan, odometry)
+        counts = self._counts
+        counts["ticks"] += 1
         for i, fe in enumerate(fes):
             if scans_xy_local[i] is None:
+                counts["idle_rows"] += 1
                 continue
             sid = sids[i] if sids[i] is not None else fe.cnt
             if fe.cnt == 0 or sid < cfg.start_frame:
                 # bootstrap or skip: the sequential path (its map update
                 # is deferred too, and flushed below)
+                counts["bootstrap_rows"] += 1
                 recs[i] = fe.process(scans_xy_local[i], odo_poses_deg[i],
                                      sid=sid)
                 continue
@@ -189,6 +219,7 @@ class BatchFrontEnd:
             last_np[i] = fe.pcmap.get_last_pose()
             cov_np[i] = fe.last_cov
             compute.append((i, sid, rs, odo))
+        counts["row_ticks"] += len(compute)
         self.timer.mark("host")
         if not compute:
             self._flush_map_updates()
@@ -255,6 +286,7 @@ class BatchFrontEnd:
             "target": empty(cfg.max_local_map_points),
             "valid": np.zeros(B, bool),
         }
+        self._counts["stack_inits"] += 1
 
     def _load_slot(self, i: int):
         """Sequence i's map state into stacked slot i. The stacked
@@ -276,6 +308,7 @@ class BatchFrontEnd:
         if st["flags"]["has_prev"]:
             put("prev", fe.pcmap.submaps[-2].final_cloud)
         st["valid"][i] = True
+        self._counts["slot_loads"] += 1
 
     def _dump_slot(self, i: int):
         """Stacked slot i back into sequence i's map (copies), before a
@@ -383,6 +416,8 @@ class BatchFrontEnd:
                 if _is_slot(ps):
                     ps = PointBuffer(tick[0][i], tick[1][i])
                 fes[i].pcmap.add_points(ps, make_target=True)
+                self._counts["slot_fallbacks"] += 1
+        self.timer.mark("map_fallback")
         if not active.any():
             return
 
@@ -412,6 +447,7 @@ class BatchFrontEnd:
                   raw_a=keep(st["raw_b"], st["raw_a"]),
                   raw_b=keep(scan, st["raw_b"]),
                   target=keep(target, st["target"]))
+        self.timer.mark("map_stacked")
         # the host counters follow; the target now lives in the stack
         for i, _, _ in pending:
             if active[i]:
