@@ -185,13 +185,13 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOP_PER_S = 67e12     # H100 SXM data sheet, outside the tensor cores
 OWN_KERNELS = ("window_kernel", "window_sum_kernel", "nn_kernel",
                "nn_finish_kernel", "nn_argmin_finish_kernel", "newton_kernel",
-               "empty_kernel")
+               "fuse_kernel", "empty_kernel")
 ATE_BOUND = 0.3            # suite.json office_default
 ACCEPT_BOUND = 0.95
 REAL_FRAME = 40            # frame whose registration feeds the checks
 DETERMINISM_FRAMES = 30
 LOOP_APART = 200           # frames between a [verify] frame and its keyframes
-PUSH = (0.5, -0.4, 5.0)    # the [verify] row pushed off: m, m, deg
+PUSH = (0.64, 5.0)         # the [verify] row pushed off: m, deg
 LOOP_TAIL = 10             # frames after the first correction in the loop runs
 PGO_TIMES = 2              # CUDA-event-timed solves a [pgo] row
 PGO_TOL_M = 1e-3           # [pgo] card against CPU: metres, and
@@ -631,6 +631,117 @@ def _check_nn(name, sc, err) -> int:
     return len(cases)
 
 
+def _check_fuse(cfg, scenes):
+    """The fuse kernel (`fuse.ekf.fuse_stage` on the card) against its
+    twin (`fuse_stage_plain`, torch on the card with
+    `torch.linalg.eigh`) on the same CUDA inputs: office_loop frame
+    REAL_FRAME's Newton result from the pose pushed 15 cm and 1 degree,
+    with a fixed odometry, one row and as 16 rows (the farm's R, each row
+    its pose shifted); the fused pose within 1e-5 or one float32 step,
+    the covariance within rtol 1e-4 / atol 1e-8, accept and the cost
+    equal, the map-frame scan bit for bit `pose2.global_points` at the
+    kernel's own pose; two launches bit for bit; the kernel alone by the
+    profiler (one launch, the call's only device operation), the wrapper
+    by CUDA events and wall, the twin's wall time and device operations.
+    Returns the kernel's JSON row at one row."""
+    import torch
+    from ndt_slam_tpu_torch.core import pose2
+    from ndt_slam_tpu_torch.fuse import ekf
+    from ndt_slam_tpu_torch.ndt import solve
+    from ndt_slam_tpu_torch.ndt.kernels import fitness_score
+    from ndt_slam_tpu_torch.ndt.score import gauss_constants
+
+    real = scenes["office_loop"]
+    dev = real["pose_rad"].device
+    d1, d2 = gauss_constants(cfg.ndt_resolution, cfg.ndt_outlier_ratio)
+    push = torch.tensor([0.12, -0.09, 0.0175], device=dev)
+    src = real["src"]
+    res = solve.align(real["pose_rad"] + push, src.xy, src.mask, real["cg"],
+                      d1, d2, max_iterations=cfg.ndt_max_iterations,
+                      step_size=cfg.ndt_step_size,
+                      trans_eps=cfg.ndt_trans_eps,
+                      radius=cfg.ndt_neighborhood)
+    est = pose2.pose_rad_to_deg(res.pose_rad)
+    pred = pose2.pose_rad_to_deg(real["pose_rad"])
+    src_map = torch.where(src.mask[:, None],
+                          pose2.global_points(est, src.xy), 1.0e8)
+    fit = fitness_score(src_map, src.mask, real["tgt"].xy, real["tgt"].mask)
+    motion = torch.tensor([0.2, 0.01, 1.5], device=dev)
+    one = dict(pred=pred, est=est, hessian=res.hessian,
+               objective=res.objective, converged=res.converged, fit=fit,
+               odo=pred + torch.tensor([0.3, -0.1, 2.0], device=dev),
+               motion=motion, last=pred - motion,
+               last_cov=torch.diag(torch.tensor([1e-3, 2e-3, 5e-4],
+                                                device=dev)) + 1e-4,
+               src_mask=src.mask, scan_xy=real["scan"].xy,
+               scan_mask=real["scan"].mask)
+    shift = torch.linspace(-1.0, 1.0, 16, device=dev)[:, None] * torch.tensor(
+        [0.5, -0.3, 20.0], device=dev)
+    rows16 = {k: v[None].expand(16, *v.shape).contiguous()
+              for k, v in one.items()}
+    for k in ("pred", "est", "odo", "last"):
+        rows16[k] = rows16[k] + shift
+
+    def stage(fn, o):
+        return fn(cfg, o["pred"], o["est"], o["hessian"], o["objective"],
+                  o["converged"], o["fit"], o["odo"], o["motion"],
+                  o["last"], o["last_cov"], o["src_mask"], o["scan_xy"],
+                  o["scan_mask"])
+    row = None
+    for name, o in (("office_loop pushed", one), ("16 rows", rows16)):
+        got, want = stage(ekf.fuse_stage, o), stage(ekf.fuse_stage_plain, o)
+        again = stage(ekf.fuse_stage, o)
+        torch.cuda.synchronize()
+        _require(all(_same_bits(a, b) for a, b in zip(got, again)),
+                 f"fuse, {name}: two launches bit for bit")
+        _require(torch.equal(got[3], want[3]) and torch.equal(got[0], want[0]),
+                 f"fuse, {name}: accept and the cost the twin's")
+        bar = torch.clamp(torch.finfo(torch.float32).eps * want[1].abs(),
+                          min=1e-5)
+        d_pose = float(((got[1] - want[1]).abs() - bar).max())
+        _require(d_pose <= 0, f"fuse, {name}: the fused pose within 1e-5 or "
+                 f"one float32 step of the twin's ({d_pose:.3g} over)")
+        np.testing.assert_allclose(got[2].cpu().numpy(),
+                                   want[2].cpu().numpy(), rtol=1e-4,
+                                   atol=1e-8)
+        at_own = pose2.global_points(got[1], o["scan_xy"])
+        m = o["scan_mask"]
+        _require(_same_bits(got[4][m], at_own[m])
+                 and bool((got[4][~m] == 1.0e8).all()),
+                 f"fuse, {name}: the map-frame scan bit for bit "
+                 f"global_points at the kernel's pose")
+        d_cov = float((got[2] - want[2]).abs().max())
+
+        def kern():
+            return stage(ekf.fuse_stage, o)
+
+        def plain():
+            return stage(ekf.fuse_stage_plain, o)
+        ms, wall_ms, plain_ms = _time_ms(kern), _wall_ms(kern), _wall_ms(plain)
+        ops, own, kernel_us, split = _profile_calls(kern, want=1)
+        plain_ops, _, _, _ = _profile_calls(plain)
+        _require(ops == 1 and own == 1,
+                 f"fuse, {name}: {ops:g} device operations a call, {own:g} "
+                 f"of them this repository's kernels (1 and 1)")
+        print(f"[kernels] fuse, {name}: accept {got[3].tolist()}; fused "
+              f"pose {float((got[1] - want[1]).abs().max()):.3g} and "
+              f"covariance {d_cov:.3g} from the twin's; kernel alone "
+              f"{kernel_us:.2f} us in {own:g} launch {split}, {ops:g} device "
+              f"operation a call; wrapper {ms:.4f} ms (CUDA events), "
+              f"{wall_ms:.4f} ms wall; twin {plain_ms:.4f} ms wall, "
+              f"{plain_ops:g} device operations a call", flush=True)
+        if row is None:
+            row = {"name": "fuse", "route": "cuda",
+                   "source": "ndt_slam_tpu_torch/csrc/ndt_kernels.cu",
+                   "replaces": "ndt_slam_tpu/fuse/ekf.py (gate_and_fuse, "
+                               "XLA) and the tail of _register_with_grid",
+                   "launches": 0, "max_abs_err": d_cov, "ms": ms,
+                   "plain_ms": plain_ms, "bound_ms": None, "bound_by": None,
+                   "library_ms": None, "kernel_us": kernel_us,
+                   "bound_us": None, "device_ops_per_call": ops}
+    return row
+
+
 def _check_kernels(cfg, scenes):
     """Each kernel vs its twin on every scene; returns the JSON rows."""
     import torch
@@ -784,6 +895,7 @@ def _check_kernels(cfg, scenes):
         })
     _nn_extra_lines(scenes["synthetic"], fitness_calls)
     rows.append(_check_newton(cfg, scenes))
+    rows.append(_check_fuse(cfg, scenes))
     return rows
 
 
@@ -924,12 +1036,14 @@ def _run_main_path(tag, frames, gt, cfg, device, keep=None):
     _require(ate < ATE_BOUND, f"{tag}: ATE {ate} < {ATE_BOUND} m")
     _require(accept >= ACCEPT_BOUND,
              f"{tag}: accept rate {accept} >= {ACCEPT_BOUND}")
-    # one Newton launch a registration (every frame but the first), the
-    # stepwise loop and kernels 1 and 2 not at all
+    # one Newton and one fuse launch a registration (every frame but the
+    # first), the stepwise loop and kernels 1 and 2 not at all
     _require(counts["newton"] >= n - 1 and counts["nn"] > 0
              and counts["sgh"] == counts["score_many"] == 0
              and solve.stepwise_cuda_calls() == 0,
              f"{tag}: the Newton kernel solves every registration")
+    _require(counts["fuse"] == counts["newton"],
+             f"{tag}: the fuse kernel fuses every registration")
     return fe, counts
 
 
@@ -1110,11 +1224,19 @@ def _verify_inputs(cfg, frames, gt, fe, device):
     one nearest to its first candidate (the revisit with the most
     overlap); without one, the frame with the most candidates, the rest
     masked rows. The initial guesses are the fused trajectory's relative
-    poses, row 0 pushed by PUSH."""
+    poses (`guess`), but row 0's. Row 0 is the first candidate the
+    verifier accepts from those guesses, and its guess the verifier's
+    answer there pushed by PUSH: PUSH[0] metres across its keyframe's
+    scan (along the least spread of its points: across a corridor, where
+    a scan match sees a shift, and along one it may not) and PUSH[1]
+    degrees. Measured from that answer, the push does not add to the
+    trajectory's drift, which moves with every rounding upstream."""
     import torch
     from ndt_slam_tpu_torch.core import pose2
     from ndt_slam_tpu_torch.core.points import PAD_COORD, pad_points
-    from ndt_slam_tpu_torch.graph import KeyframeStore, relative_pose_deg
+    from ndt_slam_tpu_torch.graph import (
+        KeyframeStore, relative_pose_deg, verify_candidates,
+    )
     from ndt_slam_tpu_torch.graph.backend import pos_var
 
     def scan(i):
@@ -1155,10 +1277,29 @@ def _verify_inputs(cfg, frames, gt, fe, device):
                                    cur_pose)
         rel_gt[r] = relative_pose_deg(torch.from_numpy(gt[store.sids[k]]),
                                       torch.from_numpy(gt[cur]))
-    init = pose2.pose_deg_to_rad(rel)
-    init[0] += torch.tensor([PUSH[0], PUSH[1], np.deg2rad(PUSH[2])])
+    guess = pose2.pose_deg_to_rad(rel).to(device)
+    answer = verify_candidates(cfg, src.xy, src.mask, tgt_xy, tgt_mask,
+                               guess)
+    acc = answer.accepted[:len(cand)].cpu()
+    _require(bool(acc.any()), "[verify] the verifier accepts a candidate "
+                              "from the fused trajectory's guesses")
+    # the first accepted candidate becomes row 0
+    first = int(acc.nonzero()[0])
+    order = [first] + [r for r in range(b) if r != first]
+    cand = [cand[r] for r in order[:len(cand)]]
+    tgt_xy, tgt_mask, guess, rel_gt = (t[order] for t in (
+        tgt_xy, tgt_mask, guess, rel_gt))
+    init = guess.clone()
+    init[0] = answer.rel_pose_rad[first]
+    kf = tgt_xy[0][tgt_mask[0]].double().cpu()
+    across = torch.linalg.eigh(torch.cov(kf.T))[1][:, 0]
+    push = torch.tensor([PUSH[0] * float(across[0]),
+                         PUSH[0] * float(across[1]), np.deg2rad(PUSH[1])],
+                        device=device)
+    init[0] += push
     return dict(cur=cur, sids=[store.sids[k] for k in cand], src=src,
-                tgt_xy=tgt_xy, tgt_mask=tgt_mask, init=init.to(device),
+                tgt_xy=tgt_xy, tgt_mask=tgt_mask, init=init, guess=guess,
+                push=push,
                 rel_gt=pose2.pose_deg_to_rad(rel_gt), n_real=len(cand),
                 keyframes=len(store))
 
@@ -1184,8 +1325,7 @@ def _check_verify(cfg, vin, device):
     src, tgt_xy, tgt_mask, init = (vin[k] for k in
                                    ("src", "tgt_xy", "tgt_mask", "init"))
     unpushed = init.clone()
-    unpushed[0] -= torch.tensor([PUSH[0], PUSH[1], np.deg2rad(PUSH[2])],
-                                device=device)
+    unpushed[0] -= vin["push"]
 
     def verify(guess):
         return verify_candidates(cfg, src.xy, src.mask, tgt_xy, tgt_mask,
@@ -1207,13 +1347,15 @@ def _check_verify(cfg, vin, device):
     gxy, gth = (_pose_gap(out.rel_pose_rad.cpu()[ok], vin["rel_gt"][ok])
                 if ok.any() else (float("nan"), float("nan")))
     real = vin["n_real"]
-    ixy, ith = _pose_gap(unpushed.cpu()[:real], vin["rel_gt"][:real])
+    ixy, ith = _pose_gap(vin["guess"].cpu()[:real], vin["rel_gt"][:real])
     print(f"[verify] frame {vin['cur']} against keyframes {vin['sids']} "
           f"({vin['n_real']} real of {cfg.loop_max_candidates} rows, "
           f"{vin['keyframes']} keyframes stored); accepted {acc.tolist()} "
           f"(CPU twins {acc_cpu.tolist()}); card vs CPU twins max {dxy:.3g} "
-          f"m, {dth:.3g} deg; row 0 pushed {PUSH[0]} m, {PUSH[1]} m, "
-          f"{PUSH[2]} deg: {rxy:.3g} m, {rth:.3g} deg from the unpushed "
+          f"m, {dth:.3g} deg; row 0 pushed {PUSH[0]} m across its "
+          f"keyframe's scan ({vin['push'][0]:.3f} m, {vin['push'][1]:.3f} "
+          f"m) and {PUSH[1]} deg from the verifier's answer: {rxy:.3g} m, "
+          f"{rth:.3g} deg from the unpushed "
           f"verify; the fused trajectory's guesses within {ixy:.3g} m, "
           f"{ith:.3g} deg of the ground truth's relative poses, the "
           f"accepted rows within {gxy:.3g} m, {gth:.3g} deg; cost "
@@ -1658,6 +1800,9 @@ def _run_loop_path(tag, frames, gt, cfg, device, fps_off):
              and counts["sgh"] == counts["score_many"] == 0,
              f"[{tag}] the solves launch the Newton kernel, fitness and the "
              f"verify kernel 3")
+    _require(counts["fuse"] == n - 1,
+             f"[{tag}] one fuse launch a registration ({counts['fuse']} for "
+             f"{n - 1})")
     for name in ("nn_sq_dists_batched", "nn_argmin"):
         _require(wrappers[name] > 0,
                  f"[{tag}] wrapper {name} launched on the loop path")
@@ -2051,8 +2196,11 @@ def _check_batch(office_seq, device):
     print(f"[batch] {len(fes)} rows, {max(len(s) for s in seqs)} ticks, "
           f"{total} scans in {wall:.2f} s = {total / wall:.2f} scans/s; "
           f"launches {counts}; by wrapper {wrappers}", flush=True)
-    for w in ("fitness_score_batched", "ndt_newton", "nn_sq_dists_batched"):
+    for w in ("fitness_score_batched", "ndt_newton", "nn_sq_dists_batched",
+              "ndt_fuse"):
         _require(wrappers[w] > 0, f"[batch]: {w} launched on the run")
+    _require(wrappers["ndt_fuse"] == wrappers["ndt_newton"],
+             "[batch]: one fuse launch a tick, as one Newton launch")
 
     for name, seq, fe, gt in zip(names, seqs, fes, gts):
         n = len(fe.pose_history)

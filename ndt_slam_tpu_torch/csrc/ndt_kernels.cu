@@ -698,6 +698,466 @@ newton_kernel(Window w, Newton nt) {
   }
 }
 
+// The fuse kernel -- replaces no Pallas kernel: the accept-and-fuse
+// stage of a registration, which the JAX package leaves to XLA
+// (ndt_slam_tpu/fuse/ekf.py's gate_and_fuse and the tail of
+// pipeline/frontend.py's _register_with_grid). Its plain twin is the
+// torch code of fuse/ekf.py (fuse_stage_plain, gate_and_fuse_plain):
+// the cost, the Hessian repair, the NDT covariance Q from the Hessian's
+// eigen-decomposition, the degenerate-direction projection of the
+// innovation, the fitness and innovation gates, the odometry covariance,
+// the Kalman blend, the fused-pose gate, the accept / dead-reckon
+// select, then the map-frame scan, error_pose and trans_probability.
+//
+// What bounds it on this card: nothing of the work. A row is a few
+// hundred f32 operations of 3x3 algebra and N point transforms; the
+// torch twin issues some 250 tensor operations for it, half of them
+// launches, and torch.linalg.eigh goes through cuSOLVER, whose info
+// check is a device-to-host copy and a sync. So the cost was launches
+// and one host round trip a scan.
+//
+// What the design does about it: one launch for R rows, one block a
+// row, no sync and no scratch.
+// - Thread 0 runs the row's 3x3 algebra in registers, each operation as
+//   the twin writes it (one rounding an operation, -fmad=false; a
+//   division by a host scalar is torch's product with the f32
+//   reciprocal, a scalar over a tensor torch's reciprocal times the
+//   scalar; angles wrap by torch's remainder on the card, fmod moved
+//   onto the divisor's sign). The 3x3 products sum in index order,
+//   where cuBLAS may take another: the kernel is held to the twin
+//   within tolerances, not bit for bit.
+// - The symmetric eigen-decomposition is cyclic Jacobi (sym3_eigh), a
+//   fixed kJacobiSweeps sweeps of the three rotations in f32, reading
+//   the lower triangle as torch.linalg.eigh does, eigenvalues sorted
+//   ascending with their vectors. Jacobi keeps the eigenvectors
+//   orthonormal to rounding and has no special case at repeated roots
+//   (where Smith's closed form needs a fallback for its vectors): Q and
+//   the projection are sums over eigenspaces, which a repeated root
+//   leaves free to rotate without changing them.
+// - K solves S^T K^T = cov_hat^T by Gaussian elimination with partial
+//   pivoting (solve3_rows), as solve_ex factors and solves.
+// - The block counts the live source slots (__syncthreads_count, exact)
+//   while thread 0 waits for it, and transforms the row's scan to the
+//   map frame at the fused pose once thread 0 has published it, in
+//   pose2.global_points' operation order, PAD_COORD where masked.
+// - No atomics: a rerun is bitwise equal.
+constexpr int kFuseThreads = 256;
+constexpr int kJacobiSweeps = 8;
+constexpr float kPadCoord = 1.0e8f;   // core/points.py PAD_COORD
+// the Python constants of core/angles.py as torch casts them to f32
+constexpr float kDeg2Rad = (float)(3.141592653589793 / 180.0);
+constexpr float kRad2Deg = (float)(180.0 / 3.141592653589793);
+constexpr float kPi = (float)3.141592653589793;
+constexpr float kTwoPi = (float)(2.0 * 3.141592653589793);
+
+// Operands of the fuse kernel, R rows, every row-major. The tail
+// (converged, odo_pose, objective, src_mask, scan_xy, scan_mask and
+// their outputs) may be null: gate_and_fuse alone, `fit` then the cost.
+struct Fuse {
+  const float* pred;             // [R, 3] predicted pose (deg)
+  const float* est;              // [R, 3] NDT pose (deg)
+  const float* odo_motion;       // [R, 3]
+  const float* last_pose;        // [R, 3]
+  const float* last_cov;         // [R, 3, 3]
+  const float* hessian;          // [R, 3, 3]
+  const float* fit;              // [R] fitness mean (or the cost)
+  const unsigned char* converged;  // [R] bool, or null
+  const float* odo_pose;         // [R, 3], or null
+  const float* objective;        // [R], or null
+  const unsigned char* src_mask;   // [R, s] bool, or null
+  const float2* scan_xy;         // [R, n] sensor frame, or null
+  const unsigned char* scan_mask;  // [R, n] bool
+  int s, n;
+  int project;                   // fuse_degenerate_ratio > 0
+  float coe_ndt_cov, degenerate_ratio, score_thre, max_trans, max_rot;
+  float del_time, coe_vel, coe_omega, failed_cost;
+  float* cost;                   // [R], or null
+  float* fused;                  // [R, 3]
+  float* cov;                    // [R, 3, 3]
+  unsigned char* accept;         // [R] bool
+  float2* global_xy;             // [R, n], or null
+  float* error_pose;             // [R, 3], or null
+  float* trans_prob;             // [R], or null
+};
+
+// torch.remainder of f32 on the card.
+__device__ __forceinline__ float t_remainder(float a, float b) {
+  float m = fmodf(a, b);
+  if (m != 0.f && ((b < 0.f) != (m < 0.f))) m += b;
+  return m;
+}
+// core/angles.py
+__device__ __forceinline__ float sub_deg(float a, float b) {
+  return t_remainder((a - b) + 180.f, 360.f) - 180.f;
+}
+__device__ __forceinline__ float wrap_rad(float a) {
+  return t_remainder(a + kPi, kTwoPi) - kPi;
+}
+
+// out = a @ b of 3x3 matrices, each sum in index order.
+__device__ __forceinline__ void mm3(const float (&a)[3][3],
+                                    const float (&b)[3][3],
+                                    float (&out)[3][3]) {
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out[i][j] = (a[i][0] * b[0][j] + a[i][1] * b[1][j]) + a[i][2] * b[2][j];
+}
+
+// out = (v * d[None, :]) @ v^T: the twin's (evecs * w[..., None, :]) @
+// evecs.mT.
+__device__ __forceinline__ void scaled_outer3(const float (&v)[3][3],
+                                              const float (&d)[3],
+                                              float (&out)[3][3]) {
+  float vd[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int k = 0; k < 3; ++k) vd[i][k] = v[i][k] * d[k];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out[i][j] =
+          (vd[i][0] * v[j][0] + vd[i][1] * v[j][1]) + vd[i][2] * v[j][2];
+}
+
+// fuse/ekf.py's odometry_covariance: F C F^T + A M A^T.
+__device__ void odometry_cov(const float* mo, const float* lp,
+                             const float* lc, float dt, float coe_vel,
+                             float coe_omega, float (&out)[3][3]) {
+  const float inv_dt = 1.f / dt;
+  const float v = sqrtf(mo[0] * mo[0] + mo[1] * mo[1]) * inv_dt;
+  const float omega = (mo[2] * kDeg2Rad) * inv_dt;
+  const float th = lp[2] * kDeg2Rad;
+  const float c = cosf(th), s = sinf(th);
+  const float m0 = (coe_vel * v) * v, m1 = (coe_omega * omega) * omega;
+  const float F[3][3] = {{1.f, 0.f, ((-v) * dt) * s},
+                         {0.f, 1.f, (v * dt) * c},
+                         {0.f, 0.f, 1.f}};
+  const float Ft[3][3] = {{F[0][0], F[1][0], F[2][0]},
+                          {F[0][1], F[1][1], F[2][1]},
+                          {F[0][2], F[1][2], F[2][2]}};
+  float C[3][3], FC[3][3], FCFt[3][3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) C[i / 3][i % 3] = lc[i];
+  mm3(F, C, FC);
+  mm3(FC, Ft, FCFt);
+  // A = [[dt c, 0], [dt s, 0], [0, dt]], M = diag(m0, m1): (A M A^T)_ij
+  // = (A_i0 m0) A_j0 + (A_i1 m1) A_j1
+  const float A[3][2] = {{c * dt, 0.f}, {s * dt, 0.f}, {0.f, dt}};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      out[i][j] = FCFt[i][j] +
+                  ((A[i][0] * m0) * A[j][0] + (A[i][1] * m1) * A[j][1]);
+}
+
+// Eigenvalues w (ascending) and eigenvectors (the columns of V) of the
+// symmetric matrix whose lower triangle H holds: cyclic Jacobi, the
+// rotations of Numerical Recipes' jacobi (the angle from
+// theta = (a_qq - a_pp) / (2 a_pq), the small root t, a_pq set to 0).
+__device__ void sym3_eigh(const float (&H)[3][3], float (&w)[3],
+                          float (&V)[3][3]) {
+  float a[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      a[i][j] = i >= j ? H[i][j] : H[j][i];
+      V[i][j] = i == j ? 1.f : 0.f;
+    }
+  const int P[3] = {0, 0, 1}, Q[3] = {1, 2, 2};
+  for (int sweep = 0; sweep < kJacobiSweeps; ++sweep) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      const int p = P[k], q = Q[k], r = 3 - p - q;
+      const float apq = a[p][q];
+      if (apq == 0.f) continue;
+      const float h = a[q][q] - a[p][p];
+      float t;
+      if (fabsf(h) + 100.f * fabsf(apq) == fabsf(h)) {
+        t = apq / h;
+      } else {
+        const float theta = 0.5f * h / apq;
+        t = 1.f / (fabsf(theta) + sqrtf(1.f + theta * theta));
+        if (theta < 0.f) t = -t;
+      }
+      const float c = 1.f / sqrtf(t * t + 1.f), s = t * c;
+      a[p][p] -= t * apq;
+      a[q][q] += t * apq;
+      a[p][q] = a[q][p] = 0.f;
+      const float arp = a[r][p], arq = a[r][q];
+      a[r][p] = a[p][r] = c * arp - s * arq;
+      a[r][q] = a[q][r] = s * arp + c * arq;
+#pragma unroll
+      for (int i = 0; i < 3; ++i) {
+        const float vp = V[i][p], vq = V[i][q];
+        V[i][p] = c * vp - s * vq;
+        V[i][q] = s * vp + c * vq;
+      }
+    }
+  }
+  w[0] = a[0][0];
+  w[1] = a[1][1];
+  w[2] = a[2][2];
+  // ascending, each vector with its value
+  const int sp[3][2] = {{0, 1}, {1, 2}, {0, 1}};
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    const int i = sp[k][0], j = sp[k][1];
+    if (w[i] > w[j]) {
+      const float tw = w[i];
+      w[i] = w[j];
+      w[j] = tw;
+#pragma unroll
+      for (int m = 0; m < 3; ++m) {
+        const float tv = V[m][i];
+        V[m][i] = V[m][j];
+        V[m][j] = tv;
+      }
+    }
+  }
+}
+
+// K with K S = C, row by row: S^T x = (row i of C)^T by an LU of S^T
+// with partial pivoting (the first largest pivot, as LAPACK's getrf).
+__device__ void solve3_rows(const float (&S)[3][3], const float (&C)[3][3],
+                            float (&K)[3][3]) {
+  float lu[3][3];
+  int perm[3] = {0, 1, 2};
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) lu[i][j] = S[j][i];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    int piv = k;
+#pragma unroll
+    for (int i = k + 1; i < 3; ++i)
+      if (fabsf(lu[i][k]) > fabsf(lu[piv][k])) piv = i;
+    if (piv != k) {
+#pragma unroll
+      for (int j = 0; j < 3; ++j) {
+        const float t = lu[k][j];
+        lu[k][j] = lu[piv][j];
+        lu[piv][j] = t;
+      }
+      const int t = perm[k];
+      perm[k] = perm[piv];
+      perm[piv] = t;
+    }
+#pragma unroll
+    for (int i = k + 1; i < 3; ++i) {
+      lu[i][k] = lu[i][k] / lu[k][k];
+#pragma unroll
+      for (int j = k + 1; j < 3; ++j) lu[i][j] = lu[i][j] - lu[i][k] * lu[k][j];
+    }
+  }
+#pragma unroll
+  for (int row = 0; row < 3; ++row) {
+    float y[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      float acc = C[row][perm[i]];
+#pragma unroll
+      for (int j = 0; j < i; ++j) acc = acc - lu[i][j] * y[j];
+      y[i] = acc;
+    }
+#pragma unroll
+    for (int i = 2; i >= 0; --i) {
+      float acc = y[i];
+#pragma unroll
+      for (int j = i + 1; j < 3; ++j) acc = acc - lu[i][j] * K[row][j];
+      K[row][i] = acc / lu[i][i];
+    }
+  }
+}
+
+// One row of gate_and_fuse (and the cost, error_pose and
+// trans_probability of the tail), in registers; writes the row's
+// outputs and returns the pose the scan is transformed at.
+__device__ __noinline__ void fuse_row(const Fuse& f, int row, int n_src,
+                                      float (&out_pose)[3]) {
+  const float* pred = f.pred + 3 * row;
+  const float* est = f.est + 3 * row;
+  const float* hin = f.hessian + 9 * row;
+  // the Hessian repair: a non-finite entry gives the identity
+  bool finite = true;
+  float H[3][3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) {
+    H[i / 3][i % 3] = hin[i];
+    finite = finite && t_finite(hin[i]);
+  }
+  if (!finite) {
+#pragma unroll
+    for (int i = 0; i < 9; ++i) H[i / 3][i % 3] = i % 4 == 0 ? 1.f : 0.f;
+  }
+  float evals[3], V[3][3];
+  sym3_eigh(H, evals, V);
+  float inv_e[3];
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    // coe / clamp(evals, 1e-3), clamped into [1e-6, 1e-2]
+    inv_e[k] = (1.f / t_clamp_min(evals[k], 1e-3f)) * f.coe_ndt_cov;
+    inv_e[k] = t_clamp_max(t_clamp_min(inv_e[k], 1e-6f), 1e-2f);
+  }
+  float Qm[3][3];
+  scaled_outer3(V, inv_e, Qm);
+
+  float zh[3] = {est[0] - pred[0], est[1] - pred[1],
+                 sub_deg(est[2], pred[2]) * kDeg2Rad};
+  if (f.project) {
+    const float wmax = t_clamp_min(evals[2], 1e-9f);
+    const float thre = f.degenerate_ratio * wmax;
+    float keep[3];
+#pragma unroll
+    for (int k = 0; k < 3; ++k) keep[k] = evals[k] > thre ? 1.f : 0.f;
+    float Pm[3][3];
+    scaled_outer3(V, keep, Pm);
+    float pz[3];
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      pz[i] = (Pm[i][0] * zh[0] + Pm[i][1] * zh[1]) + Pm[i][2] * zh[2];
+#pragma unroll
+    for (int i = 0; i < 3; ++i) zh[i] = pz[i];
+  }
+
+  const float innov_t = hypotf(est[0] - pred[0], est[1] - pred[1]);
+  const float innov_r = fabsf(sub_deg(est[2], pred[2]));
+  const bool plausible = innov_t <= f.max_trans && innov_r <= f.max_rot;
+  const float fit = f.fit[row];
+  const float cost = (f.converged == nullptr || f.converged[row])
+                         ? fit : f.failed_cost;
+  const bool successful = cost <= f.score_thre && plausible;
+
+  // the Kalman blend
+  float cov_hat[3][3];
+  odometry_cov(f.odo_motion + 3 * row, f.last_pose + 3 * row,
+               f.last_cov + 9 * row, f.del_time, f.coe_vel, f.coe_omega,
+               cov_hat);
+  float S[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) S[i][j] = Qm[i][j] + cov_hat[i][j];
+  float Ss[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Ss[i][j] = 0.5f * (S[i][j] + S[j][i]);
+  const float jitter = 1e-6f * ((Ss[0][0] + Ss[1][1]) + Ss[2][2]) + 1e-9f;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) Ss[i][j] += jitter * (i == j ? 1.f : 0.f);
+  float K[3][3];
+  solve3_rows(Ss, cov_hat, K);
+  float IK[3][3], cv[3][3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) IK[i][j] = (i == j ? 1.f : 0.f) - K[i][j];
+  mm3(IK, cov_hat, cv);
+  const float mu_hat[3] = {pred[0], pred[1], pred[2] * kDeg2Rad};
+  float fk[3];
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+    fk[i] = ((K[i][0] * zh[0] + K[i][1] * zh[1]) + K[i][2] * zh[2]) +
+            mu_hat[i];
+  fk[2] = wrap_rad(fk[2]) * kRad2Deg;
+
+  // the fused pose must also stay within the innovation gate
+  const float fused_t = hypotf(fk[0] - pred[0], fk[1] - pred[1]);
+  const float fused_r = fabsf(sub_deg(fk[2], pred[2]));
+  const bool fused_ok = fused_t <= f.max_trans && fused_r <= f.max_rot &&
+                        t_finite(fk[0]) && t_finite(fk[1]) && t_finite(fk[2]);
+  const bool accept = successful && fused_ok;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    out_pose[a] = accept ? fk[a] : pred[a];
+    f.fused[3 * row + a] = out_pose[a];
+  }
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+      f.cov[9 * row + 3 * i + j] =
+          accept ? 0.5f * (cv[i][j] + cv[j][i]) : cov_hat[i][j];
+  f.accept[row] = accept;
+  if (f.cost != nullptr) f.cost[row] = cost;
+  if (f.error_pose != nullptr) {
+    const float* odo = f.odo_pose + 3 * row;
+    f.error_pose[3 * row] = out_pose[0] - odo[0];
+    f.error_pose[3 * row + 1] = out_pose[1] - odo[1];
+    f.error_pose[3 * row + 2] = sub_deg(out_pose[2], odo[2]);
+  }
+  if (f.trans_prob != nullptr)
+    f.trans_prob[row] =
+        -f.objective[row] / t_clamp_min((float)n_src, 1.f);
+}
+
+__global__ void __launch_bounds__(kFuseThreads) fuse_kernel(Fuse f) {
+  __shared__ float s_pose[4];   // fused x, y, cos, sin of the heading
+  const int row = blockIdx.x, tid = threadIdx.x;
+  // the live source slots, exactly
+  int n_src = 0;
+  if (f.src_mask != nullptr) {
+    const unsigned char* m = f.src_mask + (size_t)row * f.s;
+    for (int i0 = 0; i0 < f.s; i0 += kFuseThreads) {
+      const int i = i0 + tid;
+      n_src += __syncthreads_count(i < f.s && m[i] != 0);
+    }
+  }
+  if (tid == 0) {
+    float pose[3];
+    fuse_row(f, row, n_src, pose);
+    const float th = pose[2] * kDeg2Rad;
+    s_pose[0] = pose[0];
+    s_pose[1] = pose[1];
+    s_pose[2] = cosf(th);
+    s_pose[3] = sinf(th);
+  }
+  if (f.scan_xy == nullptr) return;
+  __syncthreads();
+  const float px = s_pose[0], py = s_pose[1], c = s_pose[2], s = s_pose[3];
+  const size_t base = (size_t)row * f.n;
+  for (int i = tid; i < f.n; i += kFuseThreads) {
+    const float2 p = f.scan_xy[base + i];
+    float2 g;
+    if (f.scan_mask[base + i]) {
+      g.x = (c * p.x - s * p.y) + px;
+      g.y = (s * p.x + c * p.y) + py;
+    } else {
+      g.x = kPadCoord;
+      g.y = kPadCoord;
+    }
+    f.global_xy[base + i] = g;
+  }
+}
+
+// sym3_eigh alone, one thread a matrix: h [rows, 3, 3] in, w [rows, 3]
+// and V [rows, 3, 3] (the vectors as columns) out, for a check of the
+// fuse kernel's eigen-decomposition against a float64 one.
+__global__ void sym3_eigh_kernel(const float* __restrict__ h, float* w,
+                                 float* V, int rows) {
+  const int row = blockIdx.x * blockDim.x + threadIdx.x;
+  if (row >= rows) return;
+  float H[3][3], ww[3], VV[3][3];
+#pragma unroll
+  for (int i = 0; i < 9; ++i) H[i / 3][i % 3] = h[9 * row + i];
+  sym3_eigh(H, ww, VV);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    w[3 * row + i] = ww[i];
+#pragma unroll
+    for (int j = 0; j < 3; ++j) V[9 * row + 3 * i + j] = VV[i][j];
+  }
+}
+
 // Launched alone to time what a launch costs on this card.
 __global__ void empty_kernel() {}
 
@@ -1298,6 +1758,58 @@ int ndt_newton(const float* xy, const unsigned char* mask,
   // ~15000 source slots) the launch is refused
   newton_kernel<<<rows, kNewtonThreads, newton_smem_bytes(n),
                   (cudaStream_t)stream>>>(w, nt);
+  return (int)cudaGetLastError();
+}
+
+// The accept-and-fuse stage of `rows` rows in one launch (fuse_kernel):
+// pred, est, odo_motion, last_pose [rows, 3], last_cov, hessian [rows,
+// 3, 3], fit [rows]; with the tail also converged [rows] (bool; cost =
+// converged ? fit : failed_cost), odo_pose [rows, 3], objective [rows],
+// src_mask [rows, s], scan_xy [rows, n, 2] and scan_mask [rows, n].
+// Out: fused [rows, 3], cov [rows, 3, 3], accept [rows] (bool); with
+// the tail cost [rows], global_xy [rows, n, 2], error_pose [rows, 3]
+// and trans_prob [rows]. Without it (scan_xy null) every tail pointer
+// is null, s = n = 0, and fit is the cost.
+int ndt_fuse(const float* pred, const float* est, const float* odo_motion,
+             const float* last_pose, const float* last_cov,
+             const float* hessian, const float* fit,
+             const unsigned char* converged, const float* odo_pose,
+             const float* objective, const unsigned char* src_mask,
+             const float* scan_xy, const unsigned char* scan_mask,
+             float* cost, float* fused, float* cov, unsigned char* accept,
+             float* global_xy, float* error_pose, float* trans_prob,
+             int rows, int s, int n, int project, float coe_ndt_cov,
+             float degenerate_ratio, float score_thre, float max_trans,
+             float max_rot, float del_time, float coe_vel, float coe_omega,
+             float failed_cost, void* stream) {
+  const bool tail = scan_xy != nullptr;
+  if (rows < 1 || s < 0 || n < 0 ||
+      (tail && (converged == nullptr || odo_pose == nullptr ||
+                objective == nullptr || src_mask == nullptr ||
+                scan_mask == nullptr || cost == nullptr ||
+                global_xy == nullptr || error_pose == nullptr ||
+                trans_prob == nullptr)) ||
+      (!tail && (s != 0 || n != 0 || converged != nullptr ||
+                 src_mask != nullptr || cost != nullptr)))
+    return (int)cudaErrorInvalidValue;
+  const Fuse f{pred, est, odo_motion, last_pose, last_cov, hessian, fit,
+               converged, odo_pose, objective, src_mask,
+               (const float2*)scan_xy, scan_mask, s, n, project,
+               coe_ndt_cov, degenerate_ratio, score_thre, max_trans, max_rot,
+               del_time, coe_vel, coe_omega, failed_cost, cost, fused, cov,
+               accept, (float2*)global_xy, error_pose, trans_prob};
+  fuse_kernel<<<rows, kFuseThreads, 0, (cudaStream_t)stream>>>(f);
+  return (int)cudaGetLastError();
+}
+
+// The fuse kernel's eigen-decomposition of rows symmetric 3x3 matrices
+// (their lower triangles): h [rows, 3, 3]; out w [rows, 3] ascending,
+// V [rows, 3, 3] with the vectors as columns.
+int ndt_sym3_eigh(const float* h, float* w, float* V, int rows,
+                  void* stream) {
+  if (rows < 1) return (int)cudaErrorInvalidValue;
+  sym3_eigh_kernel<<<(rows + 127) / 128, 128, 0, (cudaStream_t)stream>>>(
+      h, w, V, rows);
   return (int)cudaGetLastError();
 }
 

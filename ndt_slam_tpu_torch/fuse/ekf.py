@@ -12,15 +12,27 @@ Covariances are in (m, m, rad); poses cross the API in degrees. The
 unless TF32 is switched on globally (it is off by default). Every
 function also takes a leading batch dimension (the lockstep batch
 runner's B sequences), each row computed on its own.
+
+The device routes, as in `ndt/kernels.py`: on CUDA tensors
+`gate_and_fuse` and `fuse_stage` (the whole fuse stage of a
+registration: the cost, `gate_and_fuse`, the map-frame scan,
+`error_pose` and `trans_probability`) are one launch of `fuse_kernel`
+(`kernels.ndt_fuse`, one block a row, no sync: its eigen-decomposition
+is cyclic Jacobi on the card where the twin calls `torch.linalg.eigh`);
+on CPU tensors they run the plain twins `gate_and_fuse_plain` and
+`fuse_stage_plain`, the torch code below. There is no fallback.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ndt_slam_tpu_torch.core import pose2
 from ndt_slam_tpu_torch.core.angles import (
     deg2rad, rad2deg, sub_deg, wrap_rad,
 )
+from ndt_slam_tpu_torch.core.points import PAD_COORD
+from ndt_slam_tpu_torch.ndt.kernels import ndt_fuse
 
 
 def _mv(A, x):
@@ -97,7 +109,23 @@ def gate_and_fuse(cfg, pred_pose_deg, est_pose_deg, hessian, cost,
     """NDT covariance from the objective Hessian, fitness + innovation
     gates, Kalman fuse on accept / odometry propagation on reject.
     Returns (fused_pose_deg [3], cov [3,3], accept bool); [B,3] poses,
-    [B,3,3] matrices and [B] costs give B rows, each fused alone."""
+    [B,3,3] matrices and [B] costs give B rows, each fused alone.
+
+    CUDA: one launch of `fuse_kernel`; CPU: `gate_and_fuse_plain`."""
+    if hessian.is_cuda:
+        # the stepwise loop's results can be views into one buffer
+        _, fused, cov, accept, *_ = ndt_fuse(
+            cfg, *(t.contiguous() for t in (
+                pred_pose_deg, est_pose_deg, hessian, cost, odo_motion_deg,
+                last_pose_deg, last_cov)))
+        return fused, cov, accept
+    return gate_and_fuse_plain(cfg, pred_pose_deg, est_pose_deg, hessian,
+                               cost, odo_motion_deg, last_pose_deg, last_cov)
+
+
+def gate_and_fuse_plain(cfg, pred_pose_deg, est_pose_deg, hessian, cost,
+                        odo_motion_deg, last_pose_deg, last_cov):
+    """`gate_and_fuse` in torch: the twin of `fuse_kernel`."""
     H = hessian
     eye = torch.eye(3, dtype=H.dtype, device=H.device)
     H = torch.where(torch.isfinite(H).flatten(-2).all(-1)[..., None, None],
@@ -146,3 +174,45 @@ def gate_and_fuse(cfg, pred_pose_deg, est_pose_deg, hessian, cost,
     fused = torch.where(accept[..., None], fused_k, pred_pose_deg)
     cov = torch.where(accept[..., None, None], cov_k, cov_odo)
     return fused, cov, accept
+
+
+def fuse_stage(cfg, pred_pose, est_pose, hessian, objective, converged, fit,
+               odo_pose, odo_motion, last_pose, last_cov, src_mask, scan_xy,
+               scan_mask):
+    """The fuse stage of a registration (`pipeline/frontend.py`): the
+    cost (`fit`, or `failed_cost` where the solve did not converge),
+    `gate_and_fuse`, the scan in the map frame at the fused pose
+    (`PAD_COORD` where masked), `error_pose` (the fused pose less the
+    odometry) and `trans_probability` (the score a live source point).
+    One row or [B] rows, as `gate_and_fuse`. Returns (cost, fused, cov,
+    accept, global_xy, error_pose, trans_probability).
+
+    CUDA: one launch of `fuse_kernel`; CPU: `fuse_stage_plain`."""
+    if scan_xy.is_cuda:
+        # the stepwise loop's results can be views into one buffer
+        c = [t.contiguous() for t in (
+            pred_pose, est_pose, hessian, fit, odo_motion, last_pose,
+            last_cov, converged, odo_pose, objective, src_mask, scan_xy,
+            scan_mask)]
+        return ndt_fuse(cfg, *c)
+    return fuse_stage_plain(cfg, pred_pose, est_pose, hessian, objective,
+                            converged, fit, odo_pose, odo_motion, last_pose,
+                            last_cov, src_mask, scan_xy, scan_mask)
+
+
+def fuse_stage_plain(cfg, pred_pose, est_pose, hessian, objective, converged,
+                     fit, odo_pose, odo_motion, last_pose, last_cov,
+                     src_mask, scan_xy, scan_mask):
+    """`fuse_stage` in torch: the twin of `fuse_kernel`."""
+    cost = torch.where(converged, fit, cfg.failed_cost)
+    fused, cov, accept = gate_and_fuse_plain(
+        cfg, pred_pose, est_pose, hessian, cost, odo_motion, last_pose,
+        last_cov,
+    )
+    # scan into the map frame at the fused pose (growMap input)
+    g = pose2.global_points(fused, scan_xy)
+    g = torch.where(scan_mask[..., None], g, PAD_COORD)
+    error_pose = pose2.cal_global_motion(fused, odo_pose)
+    n_src = src_mask.sum(dim=-1, dtype=torch.float32)
+    trans_prob = -objective / torch.clamp(n_src, min=1.0)
+    return cost, fused, cov, accept, g, error_pose, trans_prob

@@ -1,4 +1,4 @@
-"""The three NDT kernels: CUDA launchers, plain twins, launch counts.
+"""The NDT kernels: CUDA launchers, plain twins, launch counts.
 
 Each wrapper below replaces one Pallas TPU kernel of
 `ndt_slam_tpu/ndt/pallas_kernels.py`; the kernels are CUDA C++ in
@@ -35,13 +35,22 @@ the `lax.while_loop` of `ndt_slam_tpu/ndt/solve.py`'s `align`:
 |--------------|-----------------------------------------------|------------|
 | `ndt_newton` | `newton_kernel`: the whole Newton solve of R rows, one block a row, through kernel 1 and 2's pair visit | the stepwise loop of `solve.align` |
 
+One kernel replaces no Pallas kernel but XLA code, the accept-and-fuse
+stage of a registration (`ndt_slam_tpu/fuse/ekf.py`'s `gate_and_fuse`
+and the tail of `pipeline/frontend.py`'s `_register_with_grid`):
+
+| wrapper    | kernel                                        | plain twin |
+|------------|-----------------------------------------------|------------|
+| `ndt_fuse` | `fuse_kernel`: the cost, the NDT covariance from the Hessian (Jacobi eigen-decomposition), the gates, the Kalman blend, the accept select, the map-frame scan, `error_pose` and `trans_probability` of R rows, one block a row | `fuse.ekf.fuse_stage_plain` (`gate_and_fuse_plain` without the tail) |
+
 The device of the input tensors picks the route: a CPU tensor runs the
 twin; a CUDA tensor launches the kernel or raises. There is no
-fallback. (`ndt_newton` takes CUDA tensors only: `solve.align` routes,
-and runs its stepwise loop for CPU tensors.) Each wrapper counts its
-calls that launched in `.launches`; `launch_counts()` adds the wrappers
-of one kernel up under its name (`sgh`, `score_many`, `nn`, `newton`),
-`wrapper_launch_counts()` gives each wrapper's own count.
+fallback. (`ndt_newton` and `ndt_fuse` take CUDA tensors only:
+`solve.align` and `fuse.ekf` route, and run the twins for CPU tensors.)
+Each wrapper counts its calls that launched in `.launches`;
+`launch_counts()` adds the wrappers of one kernel up under its name
+(`sgh`, `score_many`, `nn`, `newton`, `fuse`), `wrapper_launch_counts()`
+gives each wrapper's own count.
 
 The first two kernels are bound on the card by latency, not by bytes or
 operations: a call touches ~0.3 MB and ~9 table cells a point. The TPU
@@ -82,6 +91,16 @@ every iteration, the stop and the final derivatives on the card; every
 pair goes through the visit kernels 1 and 2 use and every sum runs in
 their order, so the scores are theirs bit for bit and the 3x3 algebra
 is the stepwise loop's, operation for operation (`csrc/ndt_kernels.cu`).
+
+The fuse kernel is bound by nothing of its work either (a few hundred
+f32 operations of 3x3 algebra a row and N point transforms): its twin
+issued some 250 tensor operations a registration, half of them
+launches, and `torch.linalg.eigh`'s cuSOLVER call checks its `info` on
+the host, a copy and a sync. One thread a row does the algebra in
+registers in the twin's operation order (its 3x3 products sum in index
+order, its eigen-decomposition is cyclic Jacobi, its solve Gaussian
+elimination with partial pivoting: within tolerances of the twin, not
+bit for bit), and the row's block transforms the scan.
 
 The library is built at first use by nvcc (sm_90a, no fast math, no
 FMA contraction) into `build/kernels/` at the repository root, keyed by
@@ -181,9 +200,12 @@ def _load() -> ctypes.CDLL:
         lib.ndt_nn.argtypes = [p] * 10 + [i] * 4 + [p]
         lib.ndt_newton.argtypes = (window[:7] + [p] * 6 + window[9:]
                                    + [f, f, i, f, f, p])
+        lib.ndt_fuse.argtypes = [p] * 20 + [i] * 4 + [f] * 9 + [p]
+        lib.ndt_sym3_eigh.argtypes = [p, p, p, i, p]
         lib.ndt_empty.argtypes = [p]
         for fn in (lib.ndt_sgh, lib.ndt_score_many, lib.ndt_features,
-                   lib.ndt_nn, lib.ndt_newton, lib.ndt_empty):
+                   lib.ndt_nn, lib.ndt_newton, lib.ndt_fuse,
+                   lib.ndt_sym3_eigh, lib.ndt_empty):
             fn.restype = i
         sizes = []
         for fn in (lib.ndt_window_threads, lib.ndt_max_poses,
@@ -406,6 +428,63 @@ def ndt_newton(poses_rad, grid_index, xy, mask, grids, d1: float,
     return pose, iterations, usable, objective, hessian, matched
 
 
+def ndt_fuse(cfg, pred_pose, est_pose, hessian, fit, odo_motion, last_pose,
+             last_cov, converged=None, odo_pose=None, objective=None,
+             src_mask=None, scan_xy=None, scan_mask=None):
+    """The accept-and-fuse stage of R registrations in one launch: the
+    poses [R,3] (deg), `last_cov` and `hessian` [R,3,3], `fit` [R] (one
+    row: [3], [3,3], []), the settings read from `cfg` (a `SlamConfig`).
+    With `scan_xy` ([R,N,2]) the tail of the registration step too:
+    `converged` [R] bool, `odo_pose` [R,3], `objective` [R], `src_mask`
+    [R,S], `scan_mask` [R,N]; without it `fit` is the cost. Returns
+    (cost, fused [R,3], cov [R,3,3], accept bool [R], global_xy [R,N,2],
+    error_pose [R,3], trans_probability [R]), the tail's four None
+    without it.
+
+    CUDA only: `fuse_kernel`, one block a row. Its plain twin is
+    `fuse.ekf.fuse_stage_plain` (`gate_and_fuse_plain` without the
+    tail), which CPU tensors take; `fuse.ekf` routes."""
+    if not pred_pose.is_cuda:
+        raise ValueError(
+            f"ndt_fuse takes CUDA tensors, got {pred_pose.device}: CPU "
+            f"tensors take the plain twin, fuse.ekf.fuse_stage_plain")
+    lead = tuple(pred_pose.shape[:-1])
+    if len(lead) > 1:
+        raise ValueError(f"poses [3] or [R,3], got {tuple(pred_pose.shape)}")
+    rows, dev = (lead[0] if lead else 1), pred_pose.device
+    tail = scan_xy is not None
+    s = src_mask.shape[-1] if tail else 0
+    n = scan_xy.shape[-2] if tail else 0
+
+    def new(*shape, dtype=torch.float32):
+        return torch.empty((*lead, *shape), dtype=dtype, device=dev)
+
+    fused, cov, accept = new(3), new(3, 3), new(dtype=torch.bool)
+    cost, global_xy, error_pose, trans_prob = (
+        (new(), new(n, 2), new(3), new()) if tail else (None,) * 4)
+
+    def opt(t, *shape, dtype=torch.float32):
+        return None if t is None else _arg(t, (*lead, *shape), dtype)
+
+    _check(_load().ndt_fuse(
+        _arg(pred_pose, (*lead, 3)), _arg(est_pose, (*lead, 3)),
+        _arg(odo_motion, (*lead, 3)), _arg(last_pose, (*lead, 3)),
+        _arg(last_cov, (*lead, 3, 3)), _arg(hessian, (*lead, 3, 3)),
+        _arg(fit, lead), opt(converged, dtype=torch.bool), opt(odo_pose, 3),
+        opt(objective), opt(src_mask, s, dtype=torch.bool), opt(scan_xy, n, 2),
+        opt(scan_mask, n, dtype=torch.bool), opt(cost), fused.data_ptr(),
+        cov.data_ptr(), accept.data_ptr(), opt(global_xy, n, 2),
+        opt(error_pose, 3), opt(trans_prob), rows, s, n,
+        int(cfg.fuse_degenerate_ratio > 0.0), float(cfg.coe_ndt_cov),
+        float(cfg.fuse_degenerate_ratio), float(cfg.score_thre),
+        float(cfg.max_innovation_trans), float(cfg.max_innovation_rot),
+        float(cfg.del_time), float(cfg.coe_vel), float(cfg.coe_omega),
+        float(cfg.failed_cost), _stream(pred_pose),
+    ), "fuse")
+    ndt_fuse.launches += 1
+    return cost, fused, cov, accept, global_xy, error_pose, trans_prob
+
+
 def kernel_point_features(poses_rad, xy, cg: CompactGrid) -> torch.Tensor:
     """[C,N,4] = (px, py, fx, fy) as kernels 1 and 2 compute them on the
     card, for a check against `compact.point_features`."""
@@ -416,6 +495,19 @@ def kernel_point_features(poses_rad, xy, cg: CompactGrid) -> torch.Tensor:
         out.data_ptr(), n, nc, _inv_resolution(cg.resolution), _stream(xy),
     ), "features")
     return out
+
+
+def kernel_sym3_eigh(h):
+    """(eigenvalues [R,3] ascending, eigenvectors [R,3,3] as columns) of
+    the symmetric [R,3,3] `h` (its lower triangle), as the fuse kernel
+    decomposes the Hessian on the card, for a check against a float64
+    `torch.linalg.eigh`."""
+    rows = h.shape[0]
+    w = torch.empty((rows, 3), dtype=torch.float32, device=h.device)
+    v = torch.empty((rows, 3, 3), dtype=torch.float32, device=h.device)
+    _check(_load().ndt_sym3_eigh(_arg(h, (rows, 3, 3)), w.data_ptr(),
+                                 v.data_ptr(), rows, _stream(h)), "sym3_eigh")
+    return w, v
 
 
 def empty_launch(device: torch.device):
@@ -581,6 +673,7 @@ WRAPPERS = {
     "nn": (nn_sq_dists, fitness_score, nn_sq_dists_batched, nn_argmin,
            fitness_score_batched),
     "newton": (ndt_newton,),
+    "fuse": (ndt_fuse,),
 }
 
 

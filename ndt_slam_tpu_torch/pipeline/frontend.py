@@ -9,6 +9,9 @@ of its inputs:
     covariance from the Hessian -> accept/reject -> Kalman fuse (or
     odometry-only propagation) -> map-frame points.
 
+On CUDA tensors the stage from the cost to the map-frame points is one
+launch of the fuse kernel (`fuse.ekf.fuse_stage`, `kernels.ndt_fuse`).
+
 `_registration_step` builds the grid by rescattering the whole local
 map; `_registration_step_inc` cuts it out of the map's running moment
 lattice and adds the newest raw scan's moments. Both share the tail
@@ -51,7 +54,7 @@ import torch
 from ndt_slam_tpu_torch.config import SlamConfig
 from ndt_slam_tpu_torch.core import pose2
 from ndt_slam_tpu_torch.core.points import PAD_COORD, PointBuffer, pad_points
-from ndt_slam_tpu_torch.fuse.ekf import gate_and_fuse
+from ndt_slam_tpu_torch.fuse.ekf import fuse_stage
 from ndt_slam_tpu_torch.graph.backend import GraphBackend
 from ndt_slam_tpu_torch.io import native
 from ndt_slam_tpu_torch.mapping.pointcloud_map import PointCloudMap
@@ -261,20 +264,15 @@ def _register_with_grid(cfg: SlamConfig, grid, scan_xy, scan_mask, odo_pose,
     src_map = torch.where(src.mask[..., None], src_map, PAD_COORD)
     fitness = fitness_score_batched if rows else fitness_score
     fit = fitness(src_map, src.mask, local_xy, local_mask)
-    cost = torch.where(res.converged, fit, cfg.failed_cost)
     mark("fitness")
 
-    # --- covariance repair + gates + Kalman fuse or dead-reckon
-    fused, cov, accept = gate_and_fuse(
-        cfg, pred_pose, est_pose, res.hessian, cost,
-        odo_motion, last_pose, last_cov,
+    # --- cost, covariance repair + gates + Kalman fuse or dead-reckon,
+    # the scan in the map frame (one launch of the fuse kernel on CUDA)
+    cost, fused, cov, accept, g, error_pose, trans_prob = fuse_stage(
+        cfg, pred_pose, est_pose, res.hessian, res.objective, res.converged,
+        fit, odo_pose, odo_motion, last_pose, last_cov, src.mask, scan_xy,
+        scan_mask,
     )
-    # scan into the map frame at the fused pose (growMap input)
-    g = pose2.global_points(fused, scan_xy)
-    g = torch.where(scan_mask[..., None], g, PAD_COORD)
-    error_pose = pose2.cal_global_motion(fused, odo_pose)
-    n_src = src.mask.sum(dim=-1, dtype=torch.float32)
-    trans_prob = -res.objective / torch.clamp(n_src, min=1.0)
     mark("fuse")
     return FrameResult(
         est_pose=est_pose, fused_pose=fused, cov=cov, cost=cost,

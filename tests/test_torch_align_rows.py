@@ -111,7 +111,7 @@ def test_grid_axis_twin_equals_the_table_scan(scene, sources):
     scores = kernels.ndt_scores_grids(poses, gi, xy, mask, gs, d1, d2)
     assert rows[0].shape == (24,) and rows[2].shape == (24, 3, 3)
     assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
-                                       "newton": 0}
+                                       "newton": 0, "fuse": 0}
     assert torch.equal(scores, rows[0])
     matched = 0
     for p in range(24):

@@ -100,7 +100,7 @@ def port_verify():
         cfg, p.xy, p.mask, p.xy[None].expand(n, -1, -1).contiguous(),
         p.mask[None].expand(n, -1).contiguous(), torch.from_numpy(init))
     assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
-                                       "newton": 0}
+                                       "newton": 0, "fuse": 0}
     return {k: v.numpy() for k, v in out._asdict().items()}
 
 

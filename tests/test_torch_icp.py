@@ -64,7 +64,7 @@ def test_icp_refine_matches_jax():
                      tgt.xy[None].expand(b, -1, -1).contiguous(),
                      tgt.mask[None].expand(b, -1).contiguous())
     assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
-                                       "newton": 0}
+                                       "newton": 0, "fuse": 0}
     n_valid = int(src.mask.sum())
     for k, w in enumerate(want):
         pose = got.pose_rad[k].numpy()

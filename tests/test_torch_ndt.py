@@ -279,7 +279,7 @@ def test_wrappers_take_the_twin_only_on_cpu(scene):
                                 scene["cg"], scene["d1"], scene["d2"])
     kernels.nn_sq_dists(src.xy, src.mask, src.xy, src.mask)
     assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
-                                       "newton": 0}
+                                       "newton": 0, "fuse": 0}
     meta = torch.empty((4, 2), device="meta")
     with pytest.raises(ValueError, match="no NDT kernel route"):
         kernels.nn_sq_dists(meta, meta[:, 0] > 0, meta, meta[:, 0] > 0)

@@ -22,7 +22,8 @@ pose's matrix-vector product in other orders, and at the pushed office
 frame that flips a line-search decision); and the kernel's E, Hessian
 and matched at its final pose to the twins' score at that pose within
 the kernel bars of ROADMAP.md (the twin's own final pose may lie a few
-float32 steps away, which moves E by more).
+float32 steps away, which moves E by more), E with a floor of 1e-7 for
+a pose whose points all lie deep in their Gaussians' tails.
 
 The CPU tests hold the route: CPU tensors never reach the wrapper, CUDA
 tensors (a tensor that reports a CUDA device) take it on a `CompactGrid`
@@ -154,7 +155,7 @@ def test_route_on_card_tensors(monkeypatch, case, kernel):
 
 def test_counts_start_at_zero_and_reset():
     assert set(kernels.launch_counts()) == {"sgh", "score_many", "nn",
-                                            "newton"}
+                                            "newton", "fuse"}
     assert kernels.WRAPPERS["newton"] == (kernels.ndt_newton,)
     kernels.ndt_newton.launches = 3
     solve._stepwise_cuda = 2
@@ -163,7 +164,7 @@ def test_counts_start_at_zero_and_reset():
     kernels.reset_launch_counts()
     solve.reset_stepwise_count()
     assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
-                                       "newton": 0}
+                                       "newton": 0, "fuse": 0}
     assert solve.stepwise_cuda_calls() == 0
 
 
@@ -296,8 +297,14 @@ def _check(got, want, rows, twin, at_pose):
     torch.testing.assert_close(rows.pose_rad.cpu(), twin.pose_rad, rtol=0,
                                atol=1e-4, equal_nan=True)
     assert _bits_equal(got.matched.cpu(), m)
+    # E within rtol 1e-5, with a floor of 1e-7 that binds only where E
+    # lies within 0.01 of zero: every point deep in its cell's Gaussian
+    # tail (the edge rows' last row, 36 cm off, E = -0.00275), where a
+    # term's float32 error is its exponent times eps. There (H100) the
+    # kernel lies 8.9e-6 of E from the score in float64 and the CPU twin
+    # 1.8e-5, 2.7e-5 from each other (7.3e-8)
     np.testing.assert_allclose(got.objective.cpu().numpy(), E.numpy(),
-                               rtol=1e-5)
+                               rtol=1e-5, atol=1e-7)
     np.testing.assert_allclose(got.hessian.cpu().numpy(), H.numpy(),
                                rtol=1e-3, atol=0.05)
 

@@ -271,7 +271,7 @@ def test_both_entry_points_count_under_nn_and_take_the_twin_on_cpu():
     d2 = kernels.nn_sq_dists(src, sm, tgt, tm)
     fit = kernels.fitness_score(src, sm, tgt, tm)
     assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
-                                       "newton": 0}
+                                       "newton": 0, "fuse": 0}
     assert torch.equal(d2, nn_sq_dists(src, sm, tgt, tm))
     assert torch.equal(fit, fitness_score_plain(src, sm, tgt, tm))
     assert torch.equal(fit, fitness_score(src, sm, tgt, tm))

@@ -150,7 +150,7 @@ def _port(name):
         cfg, src.xy, src.mask, tgt.xy[None].expand(B, -1, -1).contiguous(),
         tgt.mask[None].expand(B, -1).contiguous(), torch.from_numpy(init))
     assert kernels.launch_counts() == {"sgh": 0, "score_many": 0, "nn": 0,
-                                       "newton": 0}
+                                       "newton": 0, "fuse": 0}
     return cfg, out
 
 
